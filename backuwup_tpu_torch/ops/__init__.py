@@ -1,0 +1,2 @@
+"""Device ops of the port: CDC scan + selection, BLAKE3, the leaf-pool
+digest, the manifest drivers and the backends."""

@@ -56,6 +56,9 @@ def pytest_configure(config):
         " cleanly when jax runs on the host platform (tier-1 pins"
         " JAX_PLATFORMS=cpu)")
     config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernels);"
+        " skips inside the test when torch.cuda is unavailable")
+    config.addinivalue_line(
         "markers", "concurrency: deterministic transfer-plane overlap"
         " tests (fault-plane latency/death injection); tier-1 safe")
     config.addinivalue_line(
