@@ -1,8 +1,9 @@
 """Carry reference state into the port.
 
-This system holds no weights: its state is the chunking configuration and
-the gear table.  These helpers take them from a reference object (read by
-attribute, so nothing of the JAX package is imported) and check them.
+This system holds no weights: its state is the chunking configuration,
+the gear table and the dedup table.  These helpers take them from a
+reference object or its arrays (read by attribute or as numpy, so nothing
+of the JAX package is imported) and check them.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from .ops.cdc_gpu import _HALO
+from .ops.dedup_index import KEY_WORDS, ShardedDedupIndex
 from .ops.gear import GEAR, CDCParams
 from .utils.device import resolve_device
 
@@ -46,3 +48,23 @@ def batch_from_reference(buf: np.ndarray, nv: np.ndarray, device=None):
         raise ValueError("valid lengths out of range")
     dev = resolve_device(device)
     return torch.from_numpy(buf).to(dev), torch.from_numpy(nv).to(dev)
+
+
+def dedup_table_from_reference(keys: np.ndarray, values: np.ndarray, *,
+                               max_probes: int, device=None
+                               ) -> ShardedDedupIndex:
+    """A reference table's ``(D, capacity, 4)`` u32 keys and ``(D,
+    capacity)`` u32 values (``np.asarray(idx.keys)``, ``np.asarray(
+    idx.values)``) -> the port's :class:`ShardedDedupIndex` holding the
+    same slots, on ``device``."""
+    keys = np.array(keys, dtype=np.uint32)  # a writable copy
+    values = np.array(values, dtype=np.uint32)
+    if keys.ndim != 3 or keys.shape[2] != KEY_WORDS:
+        raise ValueError("keys must be (D, capacity, 4)")
+    if values.shape != keys.shape[:2]:
+        raise ValueError("values must be (D, capacity)")
+    idx = ShardedDedupIndex.create(keys.shape[0], capacity=keys.shape[1],
+                                   max_probes=max_probes, device=device)
+    idx.keys.copy_(torch.from_numpy(keys.view(np.int32)))
+    idx.values.copy_(torch.from_numpy(values.view(np.int32)))
+    return idx

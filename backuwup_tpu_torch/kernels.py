@@ -37,6 +37,27 @@ SIGNATURES = {
         "bkw_blake3_leaf": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
                             ctypes.c_int),
     },
+    "gear_values": {
+        "bkw_gear_values": ([_P, _P, ctypes.c_longlong, _P], ctypes.c_int),
+    },
+    "ladder_candidates": {
+        "bkw_ladder_candidates": ([_P, _P, _P, ctypes.c_longlong,
+                                   ctypes.c_longlong, ctypes.c_uint,
+                                   ctypes.c_uint, _P], ctypes.c_int),
+    },
+    "dedup_probe": {
+        "bkw_dedup_probe": ([_P, _P, _P, ctypes.c_longlong, ctypes.c_uint,
+                             ctypes.c_uint, ctypes.c_int, _P, _P],
+                            ctypes.c_int),
+        "bkw_dedup_insert": ([_P, _P, _P, _P, ctypes.c_longlong,
+                              ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+                              ctypes.c_int, _P, _P, _P, _P, _P, _P],
+                             ctypes.c_int),
+        "bkw_dedup_migrate_round": ([_P, _P, ctypes.c_longlong,
+                                     ctypes.c_uint, _P, _P, ctypes.c_uint,
+                                     ctypes.c_longlong, ctypes.c_int, _P, _P,
+                                     _P, _P, _P], ctypes.c_int),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,2 +1,2 @@
 """Device ops of the port: CDC scan + selection, BLAKE3, the leaf-pool
-digest, the manifest drivers and the backends."""
+digest, the manifest pipeline, the dedup table and the backends."""

@@ -11,7 +11,10 @@ turns raw bytes into chunk manifests (cut points + BLAKE3 fingerprints):
   without CUDA; ``"cpu"`` picks the oracle.  Both give bit-identical
   manifests.
 
-Erasure coding and the dedup classification are later slices of the port.
+``manifest_many_classified`` adds the dedup hints: two passes (manifest,
+then ``dedup.classify_insert``) on the base class, and on
+:class:`GpuBackend` one pass that hands each batch's digests to the
+device dedup table mid-manifest.  Erasure coding is a later slice.
 """
 
 from __future__ import annotations
@@ -62,6 +65,18 @@ class ChunkerBackend:
 
     def manifest(self, data) -> List[ChunkRef]:
         return self.manifest_many([data])[0]
+
+    def manifest_many_classified(self, streams: Sequence[bytes], dedup):
+        """Manifest + dedup-classify one batch in a single call.
+
+        Returns ``(manifests, hints)`` where ``hints`` aligns with the
+        flattened refs (row-major over streams): the packer's dup-hint
+        contract.  Base backends run the two passes back to back against
+        ``dedup.classify_insert``; :class:`GpuBackend` overrides it with
+        the on-device handoff."""
+        out = self.manifest_many(streams)
+        return out, dedup.classify_insert([r.hash for refs in out
+                                           for r in refs])
 
     def manifest_stream(self, read: Callable[[int], bytes],
                         segment_bytes: int = 256 * 1024 * 1024,
@@ -143,10 +158,34 @@ class GpuBackend(ChunkerBackend):
         return blake3_many_gpu(datas, device=self.device)
 
     def manifest_many(self, streams):
-        results = self.pipeline.manifest_batch(streams)
-        return [[ChunkRef(offset=off, length=ln, hash=digests[k].tobytes())
-                 for k, (off, ln) in enumerate(chunks)]
-                for chunks, digests in results]
+        return [_refs(chunks, digests)
+                for chunks, digests in self.pipeline.manifest_batch(streams)]
+
+    def manifest_many_classified(self, streams, dedup):
+        """One pass: each batch's digest accumulator feeds the device dedup
+        table (``dedup.classify_dispatch``) without a host round trip, and
+        the downloaded found-flags become the dup hints through
+        ``dedup.resolve_hints``.  Falls back to the two-pass base only
+        when ``dedup`` has no device handoff."""
+        if getattr(dedup, "classify_dispatch", None) is None:
+            return super().manifest_many_classified(streams, dedup)
+        results, rowflags = self.pipeline.manifest_batch_classified(
+            streams, dedup)
+        out = []
+        hashes: List[bytes] = []
+        raw: List[Optional[bool]] = []
+        for (chunks, digests), fl in zip(results, rowflags):
+            refs = _refs(chunks, digests)
+            out.append(refs)
+            for k, ref in enumerate(refs):
+                hashes.append(ref.hash)
+                raw.append(None if fl is None else bool(fl[k]))
+        return out, dedup.resolve_hints(hashes, raw)
+
+
+def _refs(chunks, digests) -> List[ChunkRef]:
+    return [ChunkRef(offset=off, length=ln, hash=digests[k].tobytes())
+            for k, (off, ln) in enumerate(chunks)]
 
 
 def select_backend(prefer: Optional[str] = None,

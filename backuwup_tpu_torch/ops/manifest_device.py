@@ -6,7 +6,10 @@ on-device cut selection (:func:`.cdc_gpu.scan_select_batch`), chunk
 offsets and lengths are derived on the device from the packed cut rows
 (:func:`_chunk_meta`), and every chunk is digested by one leaf-pool pass
 (:func:`.digest_pool.pool_digest`).  The caller downloads the packed cuts,
-the digest accumulator and the overflow count once per batch.
+the digest accumulator and the overflow count once per batch.  With
+``emit_queries`` the batch also yields its dedup query slab, a view of the
+accumulator (the JAX mesh program's ``emit_queries``), so fingerprints
+flow manifest -> dedup table without leaving the device.
 
 The JAX package's class-tile digest (``scan_digest_batch``) is not
 ported: it exists to amortise TPU dispatch overhead.
@@ -22,6 +25,7 @@ import torch
 
 from .blake3_cpu import CHUNK_LEN
 from .cdc_gpu import _HALO, scan_select_batch
+from .dedup_index import queries_from_cvs
 from .digest_pool import pool_digest, tier_caps, tier_spans
 from .gear import CDCParams
 
@@ -101,11 +105,14 @@ def scan_digest_batch_pool(buf_d: torch.Tensor, nv_b: torch.Tensor, *,
                            min_size: int, desired_size: int, max_size: int,
                            mask_s: int, mask_l: int, s_cap: int, l_cap: int,
                            cut_cap: int, leaf_cap: int,
-                           tiers: Tuple[Tuple[int, int], ...]):
+                           tiers: Tuple[Tuple[int, int], ...],
+                           emit_queries: bool = False):
     """One resident ``(B, 31+P)`` batch -> ``(packed, acc, ovf)``:
     ``packed`` (B, 2+cut_cap) int32 cut rows, ``acc`` (B*cut_cap, 8) int32
     root CVs addressed by ``row*cut_cap + chunk``, ``ovf`` (1,) the chunks
-    the pool could not digest (nonzero: the caller redoes the batch)."""
+    the pool could not digest (nonzero: the caller redoes the batch).
+    With ``emit_queries`` a fourth output: the ``(1, B*cut_cap, 4)`` dedup
+    query view of ``acc`` (:func:`.dedup_index.queries_from_cvs`)."""
     row_len = buf_d.shape[1]
     packed = scan_select_batch(
         buf_d, nv_b, min_size=min_size, desired_size=desired_size,
@@ -115,4 +122,6 @@ def scan_digest_batch_pool(buf_d: torch.Tensor, nv_b: torch.Tensor, *,
     flat = torch.cat([buf_d.reshape(-1), buf_d.new_zeros(CHUNK_LEN)])
     acc, ovf = pool_digest(flat, abs_offs, flat_lens, leaf_cap=leaf_cap,
                            tiers=tiers)
+    if emit_queries:
+        return packed, acc, ovf, queries_from_cvs(acc)[None]
     return packed, acc, ovf

@@ -24,6 +24,11 @@ re-chunked by the ``cdc_cpu`` oracle (and digested on the device); a
 batch whose pool overflowed is re-digested by :meth:`digest_chunks`.
 Each re-run is counted (``oracle_reruns``, ``pool_reruns``), and with
 ``strict_overflow`` either raises instead.
+
+:meth:`DevicePipeline.manifest_batch_classified` adds the on-device dedup
+handoff of the JAX mesh pipeline: each batch's digest accumulator goes to
+the dedup table (``classify_dispatch``) on the same stream, and its
+found/lost vectors ride the batch's download.
 """
 
 from __future__ import annotations
@@ -170,13 +175,24 @@ class DevicePipeline:
 
     # --- the zero-round-trip driver ----------------------------------------
 
-    def manifest_segments_device(self, segments):
+    def manifest_segments_device(self, segments, dedup=None):
         """Pipelined driver over batches (generator).
 
         ``segments`` yields host ``(buf, nv)``: ``buf`` a (B, 31+P) u8
         tensor (pinned for CUDA; rows are 31 zero bytes, then the stream,
         zero padded), ``nv`` a (B,) int32 numpy array of true lengths.
         Yields, per batch, a list of per-row ``(chunks, digests)``.
+
+        With ``dedup`` (a ``MeshDedupIndex``) each batch's digest
+        accumulator is handed to the dedup table on the device
+        (``classify_dispatch``, no host round trip) and the generator
+        yields ``(rows, flags)``: ``flags[r]`` is the row's per-chunk
+        found-vector (truthy = resident before the batch's insert) or
+        ``None`` when the device could not classify the row (candidate or
+        pool overflow, a lost lane); ``resolve_hints`` finishes the job.
+        The whole slab is inserted unmasked, as in the JAX pipeline:
+        unplaced lanes are all-zero padding, and a re-run row's true
+        digests are re-inserted from the host by ``resolve_hints``.
         """
         p = self.params
         it = iter(segments)
@@ -190,14 +206,19 @@ class DevicePipeline:
                 B = int(buf_d.shape[0])
                 padded = int(buf_d.shape[1]) - _HALO
                 s_cap, l_cap, cut_cap = self._caps(padded)
-                packed, acc, ovf = scan_digest_batch_pool(
+                rets = scan_digest_batch_pool(
                     buf_d, nv_d, min_size=p.min_size,
                     desired_size=p.desired_size, max_size=p.max_size,
                     mask_s=p.mask_s, mask_l=p.mask_l, s_cap=s_cap,
                     l_cap=l_cap, cut_cap=cut_cap,
                     leaf_cap=leaf_capacity(B * padded, B * cut_cap),
-                    tiers=tier_plan(p, B * padded, B))
-                host, ev = self._to_host(packed, acc, ovf)
+                    tiers=tier_plan(p, B * padded, B),
+                    emit_queries=dedup is not None)
+                if dedup is not None:
+                    # same stream, no sync: the table reads acc in order
+                    found_d, lost_d = dedup.classify_dispatch(rets[3])
+                    rets = rets[:3] + (found_d, lost_d)
+                host, ev = self._to_host(*rets)
                 pending.append((buf_h, buf_d, nv, cut_cap, host, ev))
                 return True
             return False
@@ -209,7 +230,8 @@ class DevicePipeline:
             dispatch()
             if ev is not None:
                 ev.synchronize()
-            packed, acc, ovf = (t.numpy() for t in host)
+            packed, acc, ovf = (t.numpy() for t in host[:3])
+            B = packed.shape[0]
             nv = np.asarray(nv, dtype=np.int64)
             pool_ok = not ovf.any()
             if not pool_ok:
@@ -218,18 +240,29 @@ class DevicePipeline:
                 self.pool_reruns += 1
             dig8 = np.ascontiguousarray(acc).view(np.uint8).reshape(
                 -1, cut_cap, 32)
+            found = lost = None
+            if dedup is not None:
+                found, lost = (t.numpy().reshape(B, cut_cap) for t in host[3:])
+                note = getattr(dedup, "note_window", None)
+                if note is not None:
+                    n_real = int(packed[packed[:, 0] == 0, 1].sum())
+                    note(n_real, int((lost != 0).sum()))
             out = []
-            for r in range(packed.shape[0]):
+            flags: List = [None] * B
+            for r in range(B):
                 overflow, chunks = _decode_cut_row(packed[r])
                 if overflow:
                     row = buf_h[r, _HALO:_HALO + nv[r]].numpy().tobytes()
                     out.append(self._oracle_row(row))
                 elif pool_ok:
                     out.append((chunks, dig8[r, :len(chunks)].copy()))
+                    n = len(chunks)
+                    if found is not None and not lost[r, :n].any():
+                        flags[r] = found[r, :n] != 0
                 else:
                     out.append((chunks, self.digest_chunks(
                         buf_d[r, _HALO:_HALO + nv[r]], chunks)))
-            yield out
+            yield out if dedup is None else (out, flags)
 
     # --- stream routing ----------------------------------------------------
 
@@ -283,12 +316,24 @@ class DevicePipeline:
         """Chunk + fingerprint a batch of independent streams; one
         ``(chunks, digests)`` pair per stream, bit-identical to the oracle
         pipeline (``cdc_cpu.chunk_stream`` + ``blake3_cpu``)."""
+        return self.manifest_batch_classified(streams, None)[0]
+
+    def manifest_batch_classified(self, streams, dedup):
+        """:meth:`manifest_batch` with the on-device dedup handoff: returns
+        ``(out, flags)`` where ``flags[i]`` is stream i's per-chunk device
+        found-vector or ``None`` when the device could not classify it
+        (empty, tiny and long streams, overflow re-runs, lost lanes; the
+        host authority resolves those in ``resolve_hints``).  Without
+        ``dedup`` every flag is ``None``."""
         out: List[Optional[Tuple[List[tuple], np.ndarray]]] = [None] * len(streams)
+        flags: List[Optional[np.ndarray]] = [None] * len(streams)
         groups = self._manifest_prepass(streams, out)
         batch_rows: deque = deque()
         gen = self._bucketed_batches(streams, groups, batch_rows)
-        for results in self.manifest_segments_device(gen):
-            part = batch_rows.popleft()
-            for r, i in enumerate(part):
-                out[i] = results[r]
-        return out
+        for item in self.manifest_segments_device(gen, dedup=dedup):
+            rows, rowflags = (item, None) if dedup is None else item
+            for r, i in enumerate(batch_rows.popleft()):
+                out[i] = rows[r]
+                if rowflags is not None:
+                    flags[i] = rowflags[r]
+        return out, flags

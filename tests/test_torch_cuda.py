@@ -11,7 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from backuwup_tpu_torch.ops import blake3_gpu, scan_fused
+from backuwup_tpu_torch.ops import (
+    blake3_gpu,
+    dedup_index,
+    pallas_kernels,
+    scan_fused,
+)
 from backuwup_tpu_torch.ops.backend import CpuBackend, GpuBackend
 from backuwup_tpu_torch.ops.gear import CDCParams
 
@@ -70,3 +75,92 @@ def test_gpu_backend_matches_oracle_backend():
     assert gpu.device.type == "cuda"
     assert gpu.manifest_many(streams) == CpuBackend(params).manifest_many(
         streams)
+
+
+@pytest.mark.cuda
+def test_gear_values_kernel_matches_plain():
+    _needs_card()
+    rng = np.random.default_rng(5)
+    data = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 12345,
+                                         dtype=np.uint8)).cuda()
+    # aligned (16-byte path + tail) and unaligned (byte path) inputs
+    for b in (data[:1], data[:17], data[:4099], data, data[3:]):
+        got = pallas_kernels.gear_values(b)
+        want = pallas_kernels.gear_values_plain(b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ladder_kernel_matches_plain():
+    _needs_card()
+    rng = np.random.default_rng(6)
+    n = 3 * pallas_kernels.LADDER_BLOCK
+    g = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)).cuda()
+    for mask_s, mask_l, n_valid in ((0xFFFFFC00, 0xFFFF0000, n),
+                                    (0xFFFFC000, 0xFFF00000, n - 4321)):
+        got = pallas_kernels.ladder_candidates(g, n_valid, mask_s=mask_s,
+                                               mask_l=mask_l)
+        want = pallas_kernels.ladder_candidates_plain(
+            g, n_valid, mask_s=mask_s, mask_l=mask_l)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int(got[0].sum()) > 0
+
+
+def _clone(idx):
+    import dataclasses
+    return dataclasses.replace(idx, keys=idx.keys.clone(),
+                               values=idx.values.clone())
+
+
+@pytest.mark.cuda
+def test_dedup_kernel_matches_plain_under_races():
+    """A 4,096-key insert batch in which 64 distinct keys share one start
+    slot (so lanes still race after the retry rounds), with repeats,
+    resident keys and padding rows: found, lost and the whole tables are
+    bit-identical to the plain version; then probe and growth."""
+    _needs_card()
+    rng = np.random.default_rng(7)
+    cap = 1 << 14
+    idx = dedup_index.ShardedDedupIndex.create(1, capacity=cap,
+                                               max_probes=128)
+    pre = rng.integers(1, 2**32, (2048, 4), dtype=np.uint64).astype(np.uint32)
+    idx.insert(pre, np.arange(2048, dtype=np.uint32))
+    q = rng.integers(1, 2**32, (4096, 4), dtype=np.uint64).astype(np.uint32)
+    q[:64, 1] = (q[:64, 1] // cap) * cap + 77  # one start slot
+    q[100:140] = q[200:240]                   # intra-batch repeats
+    q[300:340] = pre[:40]                     # already resident
+    q[400:404] = 0                            # padding
+    q_d = torch.from_numpy(q.view(np.int32)).cuda()
+    v_d = torch.arange(4096, dtype=torch.int32, device="cuda") + 5000
+    plain = _clone(idx)
+    before = dedup_index.insert_table.launches
+    found, lost = idx.insert_device(q_d, v_d)
+    f_p, l_p = dedup_index.insert_table_plain(
+        plain.keys, plain.values, q_d, v_d, max_probes=plain.max_probes)
+    torch.cuda.synchronize()
+    assert dedup_index.insert_table.launches == before + 1
+    assert torch.equal(found, f_p) and torch.equal(lost, l_p)
+    assert torch.equal(idx.keys, plain.keys)
+    assert torch.equal(idx.values, plain.values)
+    assert int((lost == dedup_index.LOST_RACE).sum()) >= 53
+    assert int((found != 0).sum()) == 40
+    assert torch.equal(idx.claim, torch.full_like(idx.claim, -1))
+    probe = torch.cat([q_d, torch.from_numpy(pre.view(np.int32)).cuda()])
+    assert torch.equal(idx.probe_device(probe), dedup_index.probe_table_plain(
+        idx.keys, idx.values, probe, max_probes=idx.max_probes))
+    grown = idx.grown(4 * cap)
+    pending = (idx.keys != 0).any(dim=2).reshape(-1).to(torch.uint8)
+    nk = torch.zeros_like(grown.keys)
+    nv = torch.zeros_like(grown.values)
+    while True:
+        more, exhausted = dedup_index.migrate_round_plain(
+            idx.keys, idx.values, nk, nv, pending,
+            max_probes=idx.max_probes)
+        assert not exhausted
+        if not more:
+            break
+    assert torch.equal(grown.keys, nk) and torch.equal(grown.values, nv)
