@@ -51,7 +51,7 @@ SIGNATURES = {
                             ctypes.c_int),
         "bkw_dedup_insert": ([_P, _P, _P, _P, ctypes.c_longlong,
                               ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
-                              ctypes.c_int, _P, _P, _P, _P, _P, _P],
+                              ctypes.c_int, _P, _P, _P, _P, _P, _P, _P],
                              ctypes.c_int),
         "bkw_dedup_migrate_round": ([_P, _P, ctypes.c_longlong,
                                      ctypes.c_uint, _P, _P, ctypes.c_uint,

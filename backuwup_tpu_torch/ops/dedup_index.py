@@ -244,13 +244,42 @@ def probe_table(keys: torch.Tensor, values: torch.Tensor, q: torch.Tensor,
     return found
 
 
+class InsertScratch:
+    """The insert kernel's scratch on the card, kept between calls the way
+    the claim vector is: per lane ``state`` (u8) and ``gslot`` (i64),
+    grown to the largest batch, and ``races`` (i32), the lanes still
+    racing after each round of the last launch (the kernel zeroes it, so
+    making or reusing a scratch launches nothing)."""
+
+    def __init__(self, device: torch.device):
+        self.state = torch.empty(0, dtype=torch.uint8, device=device)
+        self.gslot = torch.empty(0, dtype=torch.int64, device=device)
+        self.races = torch.empty(1 + _RETRY_ROUNDS, dtype=torch.int32,
+                                 device=device)
+
+    def reserve(self, n: int) -> None:
+        if self.state.shape[0] < n:
+            self.state = torch.empty(n, dtype=torch.uint8,
+                                     device=self.state.device)
+            self.gslot = torch.empty(n, dtype=torch.int64,
+                                     device=self.state.device)
+
+    def rounds_run(self) -> int:
+        """Rounds the last insert launch ran (reading it syncs the host):
+        round r + 1 runs only when lanes still raced after round r."""
+        counts = self.races.tolist()
+        return 1 + sum(1 for c in counts[:-1] if c > 0)
+
+
 def insert_table(keys: torch.Tensor, values: torch.Tensor, q: torch.Tensor,
                  v: torch.Tensor, *, max_probes: int,
-                 claim: Optional[torch.Tensor] = None):
+                 claim: Optional[torch.Tensor] = None,
+                 scratch: Optional[InsertScratch] = None):
     """Insert (N, 4) queries with (N,) values in place; returns ``(found,
     lost)`` (N,) int32, ``found`` from the first round (the pre-batch
     state).  On the card ``claim`` is the table's (D*capacity,) int32
-    claim vector, all -1 (the kernel leaves it so)."""
+    claim vector, all -1 (the kernel leaves it so), and ``scratch`` the
+    table's :class:`InsertScratch`; the call is one kernel launch."""
     _check_table(keys, values)
     _check_queries(keys, q)
     if v.dtype != torch.int32 or v.shape != q.shape[:1] \
@@ -265,21 +294,23 @@ def insert_table(keys: torch.Tensor, values: torch.Tensor, q: torch.Tensor,
             or claim.shape != (keys.shape[0] * keys.shape[1],) \
             or claim.device != keys.device:
         raise ValueError("the kernel needs the table's int32 claim vector")
+    if scratch is None or scratch.races.device != keys.device:
+        raise ValueError("the kernel needs the table's insert scratch")
     q, v = q.contiguous(), v.contiguous()
     found = torch.empty(n, dtype=torch.int32, device=q.device)
     lost = torch.empty_like(found)
     if n == 0:
         return found, lost
-    state = torch.empty(n, dtype=torch.uint8, device=q.device)
-    gslot = torch.empty(n, dtype=torch.int64, device=q.device)
+    scratch.reserve(n)
     lib = kernels.library("dedup_probe")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bkw_dedup_insert(
             keys.data_ptr(), values.data_ptr(), q.data_ptr(), v.data_ptr(), n,
             keys.shape[0], keys.shape[1], max_probes, 1 + _RETRY_ROUNDS,
-            found.data_ptr(), lost.data_ptr(), state.data_ptr(),
-            gslot.data_ptr(), claim.data_ptr(), stream)
+            found.data_ptr(), lost.data_ptr(), scratch.state.data_ptr(),
+            scratch.gslot.data_ptr(), claim.data_ptr(),
+            scratch.races.data_ptr(), stream)
     kernels.check_launch(rc, "dedup_probe")
     insert_table.launches += 1
     return found, lost
@@ -365,6 +396,10 @@ class ShardedDedupIndex:
     # the kernel's per-slot claim vector (CUDA only), all -1 between calls
     claim: Optional[torch.Tensor] = field(default=None, repr=False,
                                           compare=False)
+    # the insert kernel's scratch (CUDA only); after an insert,
+    # ``scratch.rounds_run()`` says how many rounds its launch ran
+    scratch: Optional[InsertScratch] = field(default=None, repr=False,
+                                             compare=False)
 
     @classmethod
     def create(cls, n_shards: int = 1,
@@ -372,10 +407,12 @@ class ShardedDedupIndex:
                max_probes: int = defaults.DEDUP_MAX_PROBES, device=None):
         if n_shards < 1 or capacity < 1 or max_probes < 1:
             raise ValueError("n_shards, capacity and max_probes must be >= 1")
-        keys, values, claim = _empty_table(n_shards, capacity,
-                                           resolve_device(device))
+        device = resolve_device(device)
+        keys, values, claim = _empty_table(n_shards, capacity, device)
+        scratch = InsertScratch(device) if claim is not None else None
         return cls(n_shards=n_shards, capacity=capacity, keys=keys,
-                   values=values, max_probes=max_probes, claim=claim)
+                   values=values, max_probes=max_probes, claim=claim,
+                   scratch=scratch)
 
     @property
     def device(self) -> torch.device:
@@ -429,7 +466,8 @@ class ShardedDedupIndex:
         lead = q_dev.shape[:-1]
         found, lost = insert_table(
             self.keys, self.values, q_dev.reshape(-1, KEY_WORDS),
-            v_dev.reshape(-1), max_probes=self.max_probes, claim=self.claim)
+            v_dev.reshape(-1), max_probes=self.max_probes, claim=self.claim,
+            scratch=self.scratch)
         return found.reshape(lead), lost.reshape(lead)
 
     def probe_device(self, q_dev: torch.Tensor) -> torch.Tensor:
@@ -462,7 +500,8 @@ class ShardedDedupIndex:
                     break
         return ShardedDedupIndex(
             n_shards=self.n_shards, capacity=new_capacity, keys=nk,
-            values=nv, max_probes=self.max_probes, claim=claim)
+            values=nv, max_probes=self.max_probes, claim=claim,
+            scratch=self.scratch)
 
     def dump(self):
         """Every live entry on the host: ``(M, 4)`` u32 keys and ``(M,)``

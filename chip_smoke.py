@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
 1. build + device: ``nvcc`` build time; the card's name and power limit;
 2. each kernel against its plain PyTorch version on the card at the main
    path's full width, bit-exact, with CUDA-event times (median of 7 after
-   warm-up) beside the kernel's bound: K1 scan and K2 leaf; K3 gear
+   warm-up) beside the kernel's bound: K1 scan (1 x 128 MiB and 16 x 8
+   MiB) and K2 leaf; K3 gear
    values (128 MiB and an odd length, beside ``gear_t[b.long()]``) and K4
    flat-ladder candidates (128 Mi positions, both mask pairs, and the
    ``cdc_cpu`` oracle on the first 8 MiB), whose path is their own entry
@@ -16,7 +17,8 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    shard filled to load 0.5 by 64 insert batches, a 2^20-query probe
    batch, a 2^21 -> 2^23 growth), every classification held against a
    host oracle and the first and last two batches, the probe and the
-   growth against the plain version, whole tables bit-identical;
+   growth against the plain version, whole tables bit-identical; each
+   insert call's time and the rounds its one kernel launch ran;
 3. the main path: ``GpuBackend().manifest_many`` over a seeded ~2.6 GiB
    corpus (one-row 128 MiB batches, multi-row batches, tiny files,
    repeated files and a long file of repeated blocks) with
@@ -26,7 +28,9 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    ``manifest_many_classified(corpus, MeshDedupIndex(authority))`` over
    the same corpus and part, twice each: the hints against the host
    oracle (first occurrence new, repeats duplicates; then all
-   duplicates), and ``manifest_many`` once more over the corpus for a
+   duplicates), the rounds each insert call ran (from an untimed repeat),
+   and
+   ``manifest_many`` once more over the corpus for a
    comparison not skewed by warm-up; then device time by kernel over
    three profiled calls
    (one-row batches; multi-row + tiny; the same, classified);
@@ -63,10 +67,14 @@ MiB = 1 << 20
 # Operations are counted as the fewest instructions sm_90 issues for them
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# per stream position of the candidate scan: gear fmix32 (9: add, 3 shifts,
-# 3 xors, 2 multiplies), five doubling passes of a + (b << s) (5 fused
-# shift-adds), two masks, their tests, the valid check and the ballots (~7)
-SCAN_OPS_PER_POS = 9 + 5 + 7
+# per stream position of the candidate scan, the fewest instructions any
+# correct design needs: the gear value as one lookup in a 256-entry shared
+# table (a byte extract and one LDS; fmix32 in registers takes 9), one
+# fused shift-add of the rolling form h = (h << 1) + g, two mask tests (an
+# and-test each) and one pack step.  An LDS issues at 32 lanes per clock
+# per SM, half the int32 rate, so at that rate it costs 2 and the count
+# still covers it
+SCAN_OPS_PER_POS = 2 + 1 + 2 + 1
 # per BLAKE3 compression: 7 rounds x 8 G x 12 (2 three-input adds, 2 adds,
 # 4 xors, 4 funnel shifts) + 8 output xors
 B3_OPS_PER_BLOCK = 7 * 8 * 12 + 8
@@ -140,27 +148,30 @@ def phase_kernels(torch, rng, card):
               CDCParams.from_desired(64 * 1024).mask_l)]
     err = 0
     for ext, nv in ((ext1, nv1), (ext16, nv16)):
-        for ms, ml in masks:
-            got = scan_fused.candidate_words(ext, nv, ms, ml)
-            want = scan_fused.candidate_words_plain(ext, nv, ms, ml)
+        for mask_s, mask_l in masks:
+            got = scan_fused.candidate_words(ext, nv, mask_s, mask_l)
+            want = scan_fused.candidate_words_plain(ext, nv, mask_s, mask_l)
             torch.cuda.synchronize()
             e = max_abs_err(torch, got, want)
             log(f"K1 scan_candidates B={ext.shape[0]} P={ext.shape[1] - _HALO}"
-                f" masks=({ms:#x},{ml:#x}) bit-exact={e == 0}")
+                f" masks=({mask_s:#x},{mask_l:#x}) bit-exact={e == 0}")
             err = max(err, e)
     if err:
         raise AssertionError("scan kernel disagrees with its plain version")
     ms, ml = masks[0]
     k1_ms = cuda_ms(torch, lambda: scan_fused.candidate_words(ext1, nv1, ms, ml))
-    k1_plain = cuda_ms(torch, lambda: scan_fused.candidate_words_plain(
-        ext1, nv1, ms, ml), reps=5, warm=1)
     k1_b16 = cuda_ms(torch, lambda: scan_fused.candidate_words(
         ext16, nv16, ms, ml))
+    k1_plain = cuda_ms(torch, lambda: scan_fused.candidate_words_plain(
+        ext1, nv1, ms, ml), reps=5, warm=1)
     k1_bound, k1_by = bound_ms(ext1.numel() + 4 + 2 * big_p // 8,
                                big_p * SCAN_OPS_PER_POS)
+    b16_bound, _ = bound_ms(ext16.numel() + 64 + 16 * 2 * small_p // 8,
+                            16 * small_p * SCAN_OPS_PER_POS)
     log(f"K1 time 1x128MiB: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, "
-        f"bound {k1_bound:.4f} ms ({k1_by}); 16x8MiB kernel {k1_b16:.4f} ms "
-        f"[{card}]")
+        f"bound {k1_bound:.4f} ms ({k1_by}, {k1_bound / k1_ms:.1%} of it); "
+        f"16x8MiB kernel {k1_b16:.4f} ms, bound {b16_bound:.4f} ms "
+        f"({b16_bound / k1_b16:.1%}) [{card}]")
     del ext16
 
     # K2 on a 131,072-lane pool planned from real chunks of a 128 MiB row
@@ -355,6 +366,7 @@ def phase_dedup(torch, rng, card):
     stored = np.zeros(n_batches * batch, dtype=np.int64)
     idx = di.ShardedDedupIndex.create(1, capacity=cap, device=dev)
     times, plain_ms, err5, last, exhausted = [], [], 0, None, []
+    rounds = []  # rounds each insert call ran
     t_wall = time.perf_counter()
     for b in range(n_batches):
         base = b * batch
@@ -369,20 +381,29 @@ def phase_dedup(torch, rng, card):
         v = torch.arange(len(lanes), dtype=torch.int32, device=dev) + (b << 17)
         alpha = base / cap
         if b == n_batches - 1:
-            # time the last batch on clones (an insert mutates the table)
-            reps = []
+            # time the last batch on clones (an insert mutates the table):
+            # CUDA events around the call, the host's clock around the
+            # call alone (its enqueue), then the kernel's device time from
+            # the profiler over separate calls
+            reps, host = [], []
             for _ in range(7):
                 c = clone(idx)
                 torch.cuda.synchronize()
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
                 t0.record()
+                h0 = time.perf_counter()
                 c.insert_device(q, v)
+                host.append((time.perf_counter() - h0) * 1e3)
                 t1.record()
                 t1.synchronize()
                 reps.append(t0.elapsed_time(t1))
                 del c
-            last = (statistics.median(reps), len(lanes), alpha)
+            last = (statistics.median(reps), len(lanes), alpha,
+                    statistics.median(host), insert_device_ms(
+                        torch, lambda: clone(idx), q, v),
+                    insert_device_ms(torch, lambda: clone(idx),
+                                     torch.zeros_like(q), v))
         plain = clone(idx) if b in (0, 1, n_batches - 2, n_batches - 1) \
             else None
         t0 = torch.cuda.Event(enable_timing=True)
@@ -392,6 +413,7 @@ def phase_dedup(torch, rng, card):
         t1.record()
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
+        rounds.append(idx.scratch.rounds_run())
         if plain is not None:
             torch.cuda.synchronize()
             p0 = time.perf_counter()
@@ -439,6 +461,9 @@ def phase_dedup(torch, rng, card):
         f"batch {exhausted[-1]}) at max_probes {idx.max_probes}; event ms "
         f"per batch median {statistics.median(times):.4f} (first "
         f"{times[0]:.4f}, last {times[-1]:.4f}) [{card}]")
+    log(f"K5 fill, per insert call (one cooperative kernel launch each): "
+        f"rounds run {rounds}; event ms "
+        f"{[round(t, 4) for t in times]} [{card}]")
     if live != int(in_table.sum()):
         raise AssertionError("table does not hold exactly the oracle's keys")
 
@@ -465,6 +490,12 @@ def phase_dedup(torch, rng, card):
     if not ok:
         raise AssertionError("dedup probe disagrees")
     probe_k = cuda_ms(torch, lambda: idx.probe_device(pq))
+    probe_host = []  # the host's enqueue of a probe call: one plain launch
+    for _ in range(7):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        idx.probe_device(pq)
+        probe_host.append((time.perf_counter() - h0) * 1e3)
     probe_p = cuda_ms(torch, lambda: di.probe_table_plain(
         idx.keys, idx.values, pq, max_probes=idx.max_probes), reps=3, warm=1)
     hit, miss = probe_steps(0.5)
@@ -513,7 +544,7 @@ def phase_dedup(torch, rng, card):
         raise AssertionError("dedup migration disagrees")
     del small, grown, nk, nv, keys_d
 
-    k5_ms, n_lanes, alpha = last
+    k5_ms, n_lanes, alpha, k5_host, k5_dev, k5_pad = last
     n_hits = rep
     k5_bound, k5_by = bound_ms(dedup_insert_bytes(n_lanes, n_hits, batch,
                                                   alpha), 0)
@@ -522,6 +553,17 @@ def phase_dedup(torch, rng, card):
         f"{alpha:.4f}): kernel {k5_ms:.4f} ms, plain {plain_ms[-1]:.4f} ms, "
         f"bound {k5_bound:.4f} ms (bytes; {hit:.2f} steps per hit, "
         f"{miss:.2f} per miss) [{card}]")
+    log(f"K5 insert call decomposed: CUDA events around the call "
+        f"{k5_ms:.4f} ms; the host's clock around the call alone (its "
+        f"enqueue) {k5_host:.4f} ms (a probe call's, one plain launch "
+        f"through the same wrapper pattern: "
+        f"{statistics.median(probe_host):.4f} ms); the kernel's device time "
+        + (f"{k5_dev:.4f} ms" if k5_dev is not None else "not measured "
+           "(the profiler reported none)")
+        + "; an all-padding batch of as many lanes (one round, no probe "
+        "walk: the launch and the round's three grid barriers) "
+        + (f"{k5_pad:.4f} ms" if k5_pad is not None else "not measured")
+        + f" [{card}]")
     log("library_ms: null for dedup_probe -- no PyTorch call computes a "
         "hash-table probe/insert")
     return {"name": "dedup_probe", "route": "cuda",
@@ -530,6 +572,51 @@ def phase_dedup(torch, rng, card):
                         "on the TPU, not a Pallas kernel)",
             "max_abs_err": err5, "ms": k5_ms, "plain_ms": plain_ms[-1],
             "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None}
+
+
+def insert_device_ms(torch, fresh, q, v, reps: int = 3):
+    """Device time of one insert kernel (``insert_rounds_kernel``), from
+    the profiler over ``reps`` inserts of ``q``/``v`` into ``fresh()``
+    tables; None when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tables = [fresh() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in tables:
+            t.insert_device(q, v)
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if "insert_rounds_kernel" in e.key:
+            total += float(getattr(e, "self_device_time_total", 0.0)
+                           or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
+            count += e.count
+    return total / count / 1e3 if count and total > 0 else None
+
+
+def log_sass(build_dir, libs) -> None:
+    """SASS instructions of each kernel in ``libs``, counted with
+    ``cuobjdump -sass`` where the toolkit has it (a fully unrolled kernel's
+    count over the positions it handles gives instructions per position)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("sass: cuobjdump not found")
+        return
+    for name in libs:
+        out = subprocess.run([tool, "-sass", str(build_dir / f"lib{name}.so")],
+                             capture_output=True, text=True, timeout=120)
+        counts, fn = {}, None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn and line.strip().startswith("/*") and ";" in line:
+                counts[fn] += 1
+        for fn, n in counts.items():
+            log(f"sass {name}: {n} instructions in {fn}")
 
 
 def zero_counts(counters) -> None:
@@ -630,6 +717,7 @@ def run_classified(torch, backend, streams, counters, label, card,
     occurrence new, repeats duplicates); after the authority queues every
     hash, pass 2's must all be duplicates.  Returns pass 1's launch
     counts."""
+    from backuwup_tpu_torch.ops import dedup_index as di
     from backuwup_tpu_torch.snapshot.device_dedup import MeshDedupIndex
 
     authority = SetAuthority()
@@ -643,6 +731,7 @@ def run_classified(torch, backend, streams, counters, label, card,
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_counts(counters)
+    inserts = di.insert_table.launches
     pipe = backend.pipeline
     hashes = [r.hash for refs in out for r in refs]
     seen = set()
@@ -678,13 +767,44 @@ def run_classified(torch, backend, streams, counters, label, card,
         f"hashes {authority.lookups - lookups} [{card}]")
     if not all(hints2) or _tuples(out2) != _tuples(out):
         raise AssertionError("classified pass 2 is wrong")
+    rounds = insert_rounds(backend, streams)
+    log(f"{label}, classified pass 1: {inserts} insert "
+        f"calls, one cooperative kernel launch each; rounds run per call "
+        f"(untimed repeat, {len(rounds)} calls) {rounds} [{card}]")
     return launches
 
 
-def breakdown(torch, run, streams, label, card) -> None:
+def insert_rounds(backend, streams):
+    """Rounds each insert kernel launch ran in a classified pass, from an
+    untimed repeat with a fresh authority and table: the same batches
+    race alike, so these are the timed pass's rounds.  Each read syncs the
+    host, which is why no timed pass reads them."""
+    from backuwup_tpu_torch.ops import dedup_index as di
+    from backuwup_tpu_torch.snapshot.device_dedup import MeshDedupIndex
+
+    insert_device, rounds = di.ShardedDedupIndex.insert_device, []
+
+    def counting(self, q_dev, v_dev):
+        calls = di.insert_table.launches
+        out = insert_device(self, q_dev, v_dev)
+        if di.insert_table.launches > calls:
+            rounds.append(self.scratch.rounds_run())
+        return out
+
+    di.ShardedDedupIndex.insert_device = counting
+    try:
+        backend.manifest_many_classified(streams,
+                                         MeshDedupIndex(SetAuthority()))
+    finally:
+        di.ShardedDedupIndex.insert_device = insert_device
+    return rounds
+
+
+def breakdown(torch, run, streams, label, card):
     """Device time by kernel over one profiled call ``run(streams)``: the
     hand-written kernels, copies, and the plain torch ops around them,
-    with the device's busy share of the call's wall time."""
+    with the device's busy share of the call's wall time; returns the
+    device events per group (None when the profiler reported none)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -696,7 +816,7 @@ def breakdown(torch, run, streams, label, card) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     groups = {"scan_candidates": 0.0, "blake3_leaf": 0.0, "dedup_probe": 0.0,
               "memcpy": 0.0, "torch ops": 0.0}
-    launches = 0
+    counts = dict.fromkeys(groups, 0)
     top = []
     for e in prof.key_averages():
         # device-side rows only: an aten op's row repeats its kernels' time
@@ -717,24 +837,26 @@ def breakdown(torch, run, streams, label, card) -> None:
             g = "memcpy"
         else:
             g = "torch ops"
-            launches += e.count
         groups[g] += t
+        counts[g] += e.count
         top.append((t, e.count, name[:60]))
     busy = sum(groups.values())
     if busy <= 0:
         log(f"breakdown {label}: device time not measured (the profiler "
             "reported none)")
-        return
+        return None
     total = sum(len(s) for s in streams)
     log(f"breakdown {label}: {total / MiB:.1f} MiB, wall {wall_us / 1e3:.1f} "
         f"ms (profiled), device busy {busy / 1e3:.1f} ms = "
         f"{100 * busy / wall_us:.1f}% of wall, idle "
         f"{100 * (1 - busy / wall_us):.1f}% [{card}]")
     for g, t in groups.items():
-        log(f"  {g}: {t / 1e3:.2f} ms ({100 * t / busy:.1f}% of device time)")
-    log(f"  torch-op kernel launches: {launches}")
+        log(f"  {g}: {t / 1e3:.2f} ms ({100 * t / busy:.1f}% of device time)"
+            f", {counts[g]} device events")
+    log(f"  torch-op kernel launches: {counts['torch ops']}")
     for t, n, name in sorted(top, reverse=True)[:8]:
         log(f"  top: {t / 1e3:8.2f} ms x{n:6d} {name}")
+    return counts
 
 
 def _oracle_cuts(job):
@@ -813,6 +935,7 @@ def main(argv=None) -> int:
         for line in rep.splitlines():
             if any(k in line for k in ("registers", "spill", "stack frame")):
                 log(f"ptxas {name}: {line.strip()}")
+    log_sass(kernels.build_dir(), ("scan_candidates", "dedup_probe"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -884,9 +1007,16 @@ def main(argv=None) -> int:
     multi_tiny = corpus[8:48] + corpus[308:508]
     breakdown(torch, backend.manifest_many, multi_tiny,
               "40 multi-row + 200 tiny files", card)
-    breakdown(torch, lambda streams: backend.manifest_many_classified(
+    calls = dedup_index.insert_table.launches
+    counts = breakdown(torch, lambda streams: backend.manifest_many_classified(
         streams, MeshDedupIndex(SetAuthority())), multi_tiny,
         "40 multi-row + 200 tiny files, classified", card)
+    calls = dedup_index.insert_table.launches - calls
+    if counts is not None:
+        log(f"K5 in the profiled classified call: {calls} insert calls, "
+            f"{counts['dedup_probe']} insert kernel launches on the device")
+        if counts["dedup_probe"] != calls:
+            raise AssertionError("an insert call is not one kernel launch")
 
     # 4. oracle parity on a >= 16 MiB subset covering every route, and on
     # the main path's largest shapes: a one-row 128 MiB batch (pool tiers

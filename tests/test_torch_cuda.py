@@ -45,6 +45,45 @@ def test_scan_kernel_matches_plain():
 
 
 @pytest.mark.cuda
+def test_scan_kernel_edge_shapes_match_plain():
+    """Bit-exact with the plain version: P = 32; widths that are no
+    multiple of one thread's run of 128 positions (the last run passes the
+    row's end) or cross a block; valid lengths 0, 1, 31, 33 and P; 16 rows
+    of unequal valid lengths with an all-zero row; rows starting at each
+    byte alignment; both CDCParams masks, the 64 KiB masks and a loose
+    pair that sets many bits."""
+    _needs_card()
+    rng = np.random.default_rng(34)
+    masks = [(CDCParams().mask_s, CDCParams().mask_l),
+             (CDCParams.from_desired(64 * 1024).mask_s,
+              CDCParams.from_desired(64 * 1024).mask_l),
+             (0xF0000000, 0xC0000000)]
+    shapes = []
+    for P in (32, 32 * 13, 256 * 128 + 96):
+        shapes.append((P, [0, 1, 31, min(33, P), P]))
+    P16 = 64 * 1024 + 32
+    shapes.append((P16, [P16 - 777 * r for r in range(16)]))
+    for P, nvs in shapes:
+        B = len(nvs)
+        for offset in range(4):
+            flat = torch.from_numpy(rng.integers(
+                0, 256, offset + B * (31 + P), dtype=np.uint8)).cuda()
+            ext = flat[offset:].view(B, 31 + P)
+            if B == 16:
+                ext[3] = 0
+            nv = torch.tensor(nvs, dtype=torch.int32, device="cuda")
+            for mask_s, mask_l in masks:
+                before = scan_fused.candidate_words.launches
+                got = scan_fused.candidate_words(ext, nv, mask_s, mask_l)
+                want = scan_fused.candidate_words_plain(ext, nv, mask_s,
+                                                        mask_l)
+                torch.cuda.synchronize()
+                assert scan_fused.candidate_words.launches == before + 1
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (P, offset, mask_l)
+
+
+@pytest.mark.cuda
 def test_leaf_kernel_matches_plain():
     _needs_card()
     rng = np.random.default_rng(13)
@@ -164,3 +203,44 @@ def test_dedup_kernel_matches_plain_under_races():
         if not more:
             break
     assert torch.equal(grown.keys, nk) and torch.equal(grown.values, nv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("racing", [1, 2, 5, 63])
+def test_dedup_insert_rounds_match_plain(racing):
+    """``racing + 1`` distinct keys share one start slot beside 40 keys
+    on other slots and padding rows: lanes race in exactly ``racing``
+    rounds (63: past the 10 retry rounds, 53 lanes left LOST_RACE).  One
+    kernel launch; the per-round race counts it leaves in the index's
+    scratch say how many rounds ran; found, lost and the whole tables
+    equal the plain version's, and the claim vector is all -1 after the
+    call."""
+    _needs_card()
+    cap = 1 << 12
+    rng = np.random.default_rng(50 + racing)
+    q = rng.integers(1, 2**32, (racing + 1 + 40, 4),
+                     dtype=np.uint64).astype(np.uint32)
+    q[:, 1] = (q[:, 1] // cap) * cap + 200
+    q[racing + 1:, 1] -= np.arange(40, dtype=np.uint32) * 3 + 80
+    q = np.vstack([q, np.zeros((3, 4), dtype=np.uint32)])
+    q = q[rng.permutation(len(q))]
+    q_d = torch.from_numpy(q.view(np.int32)).cuda()
+    v_d = torch.arange(len(q), dtype=torch.int32, device="cuda") + 9000
+    idx = dedup_index.ShardedDedupIndex.create(1, capacity=cap,
+                                               max_probes=128)
+    plain = _clone(idx)
+    before = dedup_index.insert_table.launches
+    found, lost = idx.insert_device(q_d, v_d)
+    f_p, l_p = dedup_index.insert_table_plain(
+        plain.keys, plain.values, q_d, v_d, max_probes=plain.max_probes)
+    torch.cuda.synchronize()
+    assert dedup_index.insert_table.launches == before + 1
+    races = idx.scratch.races.tolist()
+    assert races == [max(racing - r, 0) for r in range(len(races))]
+    assert idx.scratch.rounds_run() == min(racing + 1, len(races))
+    assert torch.equal(found, f_p) and torch.equal(lost, l_p)
+    assert torch.equal(idx.keys, plain.keys)
+    assert torch.equal(idx.values, plain.values)
+    assert int((lost == dedup_index.LOST_RACE).sum()) \
+        == max(racing + 1 - len(races), 0)
+    assert torch.equal(idx.claim, torch.full_like(idx.claim, -1))

@@ -174,6 +174,36 @@ def test_races_past_the_retry_rounds_match(meshes, d):
     assert (p.probe(q) > 0).all()
 
 
+@pytest.mark.parametrize("racing", [1, 2, 5])
+@pytest.mark.parametrize("d", SHARDS)
+def test_races_for_exact_rounds_match(meshes, d, racing):
+    """``racing + 1`` distinct keys share one shard and one start slot,
+    beside keys on other start slots: each round places the highest
+    racing index, so lanes race in exactly ``racing`` rounds and none is
+    lost; found, lost and the layout match the JAX program."""
+    cap = 256
+    p, r = _pair(meshes, d, cap, max_probes=64)
+    rng = np.random.default_rng(40 + racing)
+    q = rng.integers(1, 2**32, (racing + 1 + 40, 4),
+                     dtype=np.uint64).astype(np.uint32)
+    q[:, 0] = q[:, 0] // d * d + 3 % d  # one owner shard
+    q[:, 1] = (q[:, 1] // cap) * cap + 200  # one start slot ...
+    q[racing + 1:, 1] -= np.arange(40, dtype=np.uint32) * 3 + 80  # ... or not
+    q = q[rng.permutation(len(q))]
+    vals = np.arange(len(q), dtype=np.uint32) + 1000
+    found, lost = p._insert_once(q, vals)
+    f_ref, l_ref = r._insert_once(q, vals)
+    assert np.array_equal(found, f_ref) and np.array_equal(lost, l_ref)
+    assert not lost.any() and not found.any()
+    _same_layout(p, r)
+    # round j placed the highest racing index still racing in slot 200 + j
+    racers = np.flatnonzero(q[:, 1] % cap == 200)[::-1]
+    assert len(racers) == racing + 1
+    slots = p.keys.numpy().view(np.uint32)[3 % d, 200:201 + racing]
+    assert np.array_equal(slots, q[racers])
+    assert not p.keys.numpy()[3 % d, 201 + racing].any()
+
+
 @pytest.mark.parametrize("d", SHARDS)
 def test_insert_device_and_probe_device(meshes, d):
     p, r = _pair(meshes, d, 512 // d)
@@ -260,3 +290,19 @@ def test_found_wraps_like_u32():
     assert (p.probe(q) == 0).all()
     assert (_insert_both(p, r, q, np.arange(4, dtype=np.uint32)) == 0).all()
     assert np.array_equal(p.probe(q), np.arange(4, dtype=np.uint32) + 1)
+
+
+@pytest.mark.parametrize("counts, rounds", [
+    ([0] * 11, 1), ([5] + [0] * 10, 2), ([3, 2, 1] + [0] * 8, 4),
+    ([9] * 11, 11)])
+def test_insert_scratch_reads_rounds_and_grows(counts, rounds):
+    """The insert kernel's scratch: round r + 1 ran only when lanes still
+    raced after round r (the last round's count starts no round), and the
+    per-lane buffers grow to the largest batch and never shrink."""
+    s = port.InsertScratch(torch.device("cpu"))
+    s.races.copy_(torch.tensor(counts, dtype=torch.int32))
+    assert s.rounds_run() == rounds
+    s.reserve(100)
+    assert s.state.shape == (100,) and s.gslot.shape == (100,)
+    s.reserve(10)
+    assert s.state.shape == (100,) and s.gslot.dtype == torch.int64
