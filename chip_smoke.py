@@ -10,10 +10,13 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    path's full width, bit-exact, with CUDA-event times (median of 7 after
    warm-up) beside the kernel's bound: K1 scan (1 x 128 MiB and 16 x 8
    MiB) and K2 leaf; K3 gear
-   values (128 MiB and an odd length, beside ``gear_t[b.long()]``) and K4
+   values (128 MiB at byte offsets 0, 2, 3 and 12345 and an odd length,
+   timed aligned and at offset 12345, beside ``gear_t[b.long()]`` and a
+   640 MiB ``copy_`` as the card's reachable bandwidth) and K4
    flat-ladder candidates (128 Mi positions, both mask pairs, and the
    ``cdc_cpu`` oracle on the first 8 MiB), whose path is their own entry
-   points; K5 the dedup table at a deployment's size (one 2^23-slot
+   points; ``cuobjdump -sass`` instruction counts of K1, K3, K4 and K5;
+   K5 the dedup table at a deployment's size (one 2^23-slot
    shard filled to load 0.5 by 64 insert batches, a 2^20-query probe
    batch, a 2^21 -> 2^23 growth), every classification held against a
    host oracle and the first and last two batches, the probe and the
@@ -78,10 +81,15 @@ SCAN_OPS_PER_POS = 2 + 1 + 2 + 1
 # per BLAKE3 compression: 7 rounds x 8 G x 12 (2 three-input adds, 2 adds,
 # 4 xors, 4 funnel shifts) + 8 output xors
 B3_OPS_PER_BLOCK = 7 * 8 * 12 + 8
-# per position of the flat-ladder candidates (from gear values): five
-# doubling shift-adds, two masks, their tests, the valid check and two
-# byte stores (~7)
-LADDER_OPS_PER_POS = 5 + 7
+# per position of the flat-ladder candidates (from gear values), the fewest
+# instructions any correct design needs: one fused shift-add of the rolling
+# form h = (h << 1) + g, two and-tests (cs tests mask_l | mask_s at once,
+# since cs = cl & ((h & mask_s) == 0)) and one flag pack per output.  At
+# 5 per position the operations take ~0.04 ms for 128 Mi positions against
+# the bytes' ~0.24 ms (4 B read, 2 B written), so the bound is the bytes'
+LADDER_OPS_PER_POS = 1 + 2 + 2
+# the copy yardstick: one device-to-device copy_ of this many bytes
+COPY_BYTES = 640 * MiB
 SECTOR = 32  # bytes of one DRAM sector: the unit of a random access
 
 
@@ -89,8 +97,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, reps: int = 7, warm: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` in ms."""
+def cuda_ms(torch, fn, reps: int = 7, warm: int = 2, count: int = 1) -> float:
+    """Median CUDA-event time of ``fn`` in ms.  With ``count`` > 1 the
+    events enclose ``count`` calls back to back and the time is per call:
+    the host enqueues each call while the one before runs, so the wrapper's
+    own host time drops out of a kernel that runs longer than it."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -99,10 +110,11 @@ def cuda_ms(torch, fn, reps: int = 7, warm: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(count):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / count)
     return statistics.median(times)
 
 
@@ -233,24 +245,49 @@ def phase_gear_ladder(torch, rng, card):
     n = 128 * MiB
     row = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
     err3 = 0
-    for b in (row, row[:n - 12345], row[12345:]):
+    for b in (row, row[:n - 12345], row[12345:], row[2:], row[3:]):
         got = pk.gear_values(b)
         want = pk.gear_values_plain(b)
         torch.cuda.synchronize()
         e = max_abs_err(torch, [got], [want])
-        log(f"K3 gear_values n={b.numel()} bit-exact={e == 0}")
+        log(f"K3 gear_values n={b.numel()} offset "
+            f"{b.data_ptr() - row.data_ptr()} bit-exact={e == 0}")
         err3 = max(err3, e)
     if err3:
         raise AssertionError("gear kernel disagrees with its plain version")
     gear_t = torch.from_numpy(GEAR.view(np.int32)).to(dev)
-    k3_ms = cuda_ms(torch, lambda: pk.gear_values(row))
+    # K3 and K4 are timed per launch over 20 launches back to back: a
+    # single call's events also hold the wrapper's ~0.03-0.05 ms of host
+    # enqueue, which is a fifth of these kernels' time (the single-call
+    # time, the method of K1, K2 and K5's rows, is logged beside it)
+    k3_ms = cuda_ms(torch, lambda: pk.gear_values(row), count=20)
+    odd = row[12345:]  # an input at an odd byte offset
+    k3_odd = cuda_ms(torch, lambda: pk.gear_values(odd), count=20)
+    k3_one = cuda_ms(torch, lambda: pk.gear_values(row))
     k3_plain = cuda_ms(torch, lambda: pk.gear_values_plain(row), reps=5,
                        warm=1)
     k3_lib = cuda_ms(torch, lambda: gear_t[row.long()], reps=5, warm=1)
     k3_bound, k3_by = bound_ms(5 * n, n)
-    log(f"K3 time 128 MiB: kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms, "
+    odd_bound, _ = bound_ms(5 * odd.numel(), odd.numel())
+    log(f"K3 time 128 MiB, per launch of 20 back to back: kernel "
+        f"{k3_ms:.4f} ms ({k3_bound / k3_ms:.1%} of bound), at byte offset "
+        f"12345 {k3_odd:.4f} ms ({odd_bound / k3_odd:.1%} of its bound "
+        f"{odd_bound:.4f} ms); one call {k3_one:.4f} ms; plain "
+        f"{k3_plain:.4f} ms, "
         f"gear_t[b.long()] {k3_lib:.4f} ms, bound {k3_bound:.4f} ms "
         f"({k3_by}) [{card}]")
+    # a yardstick, not a library_ms: the rate one copy_ reaches on this card
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(torch, lambda: dst.copy_(src), count=20)
+    copy_rate = 2 * COPY_BYTES / (copy_ms * 1e-3)
+    del src, dst
+    log(f"copy yardstick: copy_ of {COPY_BYTES // MiB} MiB, per copy of 20 "
+        f"back to back {copy_ms:.4f} ms, "
+        f"{copy_rate / 1e12:.3f} TB/s read + written "
+        f"({copy_rate / HBM_BYTES_PER_S:.1%} of "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s); at that rate K3's 5 B per byte take "
+        f"{5 * n / copy_rate * 1e3:.4f} ms [{card}]")
 
     # K4 on the gear values of a 128 MiB row behind 31 zero bytes, rounded
     # up to the ladder block; n_valid short of the end
@@ -283,12 +320,17 @@ def phase_gear_ladder(torch, rng, card):
         err4 = max(err4, e)
     ms, ml = masks[0]
     k4_ms = cuda_ms(torch, lambda: pk.ladder_candidates(
+        g, n_valid, mask_s=ms, mask_l=ml), count=20)
+    k4_one = cuda_ms(torch, lambda: pk.ladder_candidates(
         g, n_valid, mask_s=ms, mask_l=ml))
     k4_plain = cuda_ms(torch, lambda: pk.ladder_candidates_plain(
         g, n_valid, mask_s=ms, mask_l=ml), reps=5, warm=1)
     k4_bound, k4_by = bound_ms(6 * n4, n4 * LADDER_OPS_PER_POS)
-    log(f"K4 time {n4} positions: kernel {k4_ms:.4f} ms, plain "
-        f"{k4_plain:.4f} ms, bound {k4_bound:.4f} ms ({k4_by}) [{card}]")
+    log(f"K4 time {n4} positions, per launch of 20 back to back: kernel "
+        f"{k4_ms:.4f} ms ({k4_bound / k4_ms:.1%} of bound); one call "
+        f"{k4_one:.4f} ms; plain {k4_plain:.4f} ms, bound "
+        f"{k4_bound:.4f} ms ({k4_by}); at the copy yardstick's rate its 6 B "
+        f"per position take {6 * n4 / copy_rate * 1e3:.4f} ms [{card}]")
     log("library_ms: gear_values vs gear_t[b.long()]; null for "
         "ladder_candidates -- no PyTorch call computes the windowed sum")
 
@@ -935,7 +977,8 @@ def main(argv=None) -> int:
         for line in rep.splitlines():
             if any(k in line for k in ("registers", "spill", "stack frame")):
                 log(f"ptxas {name}: {line.strip()}")
-    log_sass(kernels.build_dir(), ("scan_candidates", "dedup_probe"))
+    log_sass(kernels.build_dir(), ("scan_candidates", "dedup_probe",
+                                   "gear_values", "ladder_candidates"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()

@@ -122,7 +122,7 @@ def test_gear_values_kernel_matches_plain():
     rng = np.random.default_rng(5)
     data = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 12345,
                                          dtype=np.uint8)).cuda()
-    # aligned (16-byte path + tail) and unaligned (byte path) inputs
+    # whole 4-byte groups and a tail of 1 or 3 values; an odd byte offset
     for b in (data[:1], data[:17], data[:4099], data, data[3:]):
         got = pallas_kernels.gear_values(b)
         want = pallas_kernels.gear_values_plain(b)
@@ -147,6 +147,67 @@ def test_ladder_kernel_matches_plain():
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         assert int(got[0].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_gear_values_kernel_offsets_and_lengths():
+    """Bit-exact with the plain version at every byte offset 0-15 and
+    every length 0-64 (a tail of 0-3 values after whole 4-byte groups),
+    and at 1 MiB + 12,345 from each offset; one launch per non-empty
+    call."""
+    _needs_card()
+    rng = np.random.default_rng(35)
+    long_n = (1 << 20) + 12345
+    data = torch.from_numpy(rng.integers(0, 256, 16 + long_n,
+                                         dtype=np.uint8)).cuda()
+    for offset in range(16):
+        for length in [*range(65), long_n]:
+            b = data[offset:offset + length]
+            before = pallas_kernels.gear_values.launches
+            got = pallas_kernels.gear_values(b)
+            want = pallas_kernels.gear_values_plain(b)
+            assert torch.equal(got, want), (offset, length)
+            assert pallas_kernels.gear_values.launches == before + (
+                length > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_ladder_kernel_valid_boundaries_match_plain(blocks):
+    """Bit-exact with the plain version for n_valid at 0, 1, 31, 33 and
+    around every boundary of the kernel's schedule (a thread's run of 16
+    positions, a warp's span of 512, a block of 4,096, a ladder block)
+    and n; the CDCParams() masks, the 64 KiB masks and a
+    loose pair that sets a quarter of the flags; gear values of real
+    bytes and random words, and an input 4 bytes off a 16-byte
+    boundary."""
+    _needs_card()
+    rng = np.random.default_rng(36 + blocks)
+    n = blocks * pallas_kernels.LADDER_BLOCK
+    data = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).cuda()
+    words = torch.from_numpy(rng.integers(0, 2**32, n + 1, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).cuda()
+    inputs = [pallas_kernels.gear_values(data), words[:n], words[1:]]
+    masks = [(CDCParams().mask_s, CDCParams().mask_l),
+             (CDCParams.from_desired(64 * 1024).mask_s,
+              CDCParams.from_desired(64 * 1024).mask_l),
+             (0xF0000000, 0xC0000000)]
+    n_valids = {0, 1, 31, 33, n - 1, n, n + 1, -5}
+    for edge in (16, 512, 4096, pallas_kernels.LADDER_BLOCK):
+        for k in range(1, min(n // edge, 3) + 1):
+            n_valids.update((k * edge - 1, k * edge, k * edge + 1))
+    for g in inputs:
+        for mask_s, mask_l in masks:
+            for n_valid in sorted(n_valids):
+                before = pallas_kernels.ladder_candidates.launches
+                got = pallas_kernels.ladder_candidates(
+                    g, n_valid, mask_s=mask_s, mask_l=mask_l)
+                want = pallas_kernels.ladder_candidates_plain(
+                    g, n_valid, mask_s=mask_s, mask_l=mask_l)
+                assert pallas_kernels.ladder_candidates.launches == before + 1
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (n, mask_l, n_valid)
+    assert int(want[0].sum()) > n // 8  # the loose pair sets many flags
 
 
 def _clone(idx):
