@@ -1,16 +1,23 @@
 """Carry reference state into the port.
 
 This system holds no weights: its state is the chunking configuration,
-the gear table and the dedup table.  These helpers take them from a
-reference object or its arrays (read by attribute or as numpy, so nothing
-of the JAX package is imported) and check them.
+the gear table, the dedup table and the tiered dedup front around it.
+These helpers take them from a reference object or its arrays (read by
+attribute or as numpy, so nothing of the JAX package is imported) and
+check them.  On-disk state (packfiles, index files, cold runs) needs no
+converter: the formats are the same.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
+from pathlib import Path
+
 import numpy as np
 import torch
 
+from .dedupstore.cold import ColdFingerprintStore
+from .dedupstore.tiered import TieredDedupIndex
 from .ops.cdc_gpu import _HALO
 from .ops.dedup_index import KEY_WORDS, ShardedDedupIndex
 from .ops.gear import GEAR, CDCParams
@@ -68,3 +75,42 @@ def dedup_table_from_reference(keys: np.ndarray, values: np.ndarray, *,
     idx.keys.copy_(torch.from_numpy(keys.view(np.int32)))
     idx.values.copy_(torch.from_numpy(values.view(np.int32)))
     return idx
+
+
+def tiered_from_reference(ref, host_index, cold_dir: Path,
+                          device=None) -> TieredDedupIndex:
+    """The port's :class:`TieredDedupIndex` in the state of a reference
+    one (``backuwup_tpu.dedupstore.TieredDedupIndex``): the same hot
+    table slot for slot, capacity, budget and clock settings, recency
+    order, heat counters and promotion queue, over ``host_index`` as its
+    authority.  ``cold_dir`` holds the reference's cold runs (its own
+    directory or a copy) and is opened in place; the reference's memtable,
+    which is volatile by design, is copied."""
+    keys = np.asarray(ref.sharded.keys)
+    sharded = dedup_table_from_reference(
+        keys, np.asarray(ref.sharded.values),
+        max_probes=int(ref.sharded.max_probes), device=device)
+    if int(ref.capacity) != keys.shape[1]:
+        raise ValueError("the reference front's capacity and table differ")
+    front = TieredDedupIndex.__new__(TieredDedupIndex)
+    front.host = host_index
+    front.n_shards = keys.shape[0]
+    front.device = sharded.device
+    front.capacity = keys.shape[1]
+    front._ones_cache = OrderedDict()
+    front.sharded = sharded
+    front.hbm_budget_bytes = int(ref.hbm_budget_bytes)
+    front.clock_windows = int(ref.clock_windows)
+    front.promote_min_hits = int(ref.promote_min_hits)
+    rc = ref.cold
+    front.cold = ColdFingerprintStore(
+        cold_dir, memtable_limit=int(rc.memtable_limit),
+        n_buckets=int(rc.n_buckets), compact_fanin=int(rc.compact_fanin))
+    front.cold._memtable = dict(rc._memtable)
+    front._windows = int(ref._windows)
+    front._saw_dispatch = bool(ref._saw_dispatch)
+    front._cold_hits = dict(ref._cold_hits)
+    front._promote_queue = dict(ref._promote_queue)
+    front._recent = OrderedDict(ref._recent)
+    front._note_hbm()
+    return front

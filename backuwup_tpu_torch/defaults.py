@@ -1,4 +1,4 @@
-"""Tunables of the port's manifest plane and dedup table.
+"""Tunables of the port's backup data plane.
 
 The port's own copies of the constants it needs from
 ``backuwup_tpu/defaults.py``; the port imports nothing of the JAX package.
@@ -25,3 +25,49 @@ BLAKE3_LEAF_BUCKETS = (16, 64, 256, 1024, 2048, 3072)
 # slots per shard (16 B key + 4 B value each) and linear-probe steps
 DEDUP_SHARD_CAPACITY = 1 << 20
 DEDUP_MAX_PROBES = 32
+
+# --- packfiles (backuwup_tpu/defaults.py:25-34; reference packfile/mod.rs) ---
+PACKFILE_TARGET_SIZE = 3 * MiB
+PACKFILE_MAX_SIZE = 16 * MiB
+PACKFILE_MAX_BLOBS = 100_000
+ZSTD_COMPRESSION_LEVEL = 3
+# blob-index entries per encrypted index file (blob_index.rs:16-19)
+INDEX_FILE_MAX_ENTRIES = 50_000
+# children per tree node before a next_sibling page (dir_packer.rs:35)
+TREE_MAX_CHILDREN = 10_000
+
+# --- packfile seal pipeline (backuwup_tpu/defaults.py:96-102) ----------------
+# worker threads running zstd + AES-GCM (both release the GIL), the bound on
+# assembled-but-unwritten packfile batches, and the packer's lag bound on
+# blobs buffered below the packfile target size
+PACK_SEAL_WORKERS = 2
+PACK_SEAL_QUEUE_PACKFILES = 2
+PACK_EMIT_MAX_LAG_S = 2.0
+
+# --- p2p transport (backuwup_tpu/defaults.py:183-191) ------------------------
+# every packfile must fit one signed transport message, so the writer's cap
+# is the wire maximum less the envelope's framing
+MAX_P2P_MESSAGE_SIZE = 8 * MiB
+P2P_ENVELOPE_OVERHEAD = 4 * KiB
+PACKFILE_WIRE_MAX = MAX_P2P_MESSAGE_SIZE - P2P_ENVELOPE_OVERHEAD
+
+# --- event journal (backuwup_tpu/defaults.py:210-212) ------------------------
+OBS_JOURNAL_MAX_BYTES = 4 * MiB  # rotate the JSONL journal past this size
+OBS_JOURNAL_KEEP = 3  # rotated generations retained (<path>.1 .. .keep)
+OBS_PANIC_TAIL_LINES = 200  # journal lines embedded in a panic dump
+
+# --- tiered dedup index (backuwup_tpu/defaults.py:436-447) -------------------
+# Ceiling on device bytes the hot fingerprint table may occupy: slots x 20
+# bytes (16-byte truncated key + u32 value) x shards.  When an insert would
+# force a 4x growth past it, the tiered index demotes cold fingerprints to
+# the host LSM store instead of growing.
+DEDUP_HBM_BUDGET_BYTES = 256 * MiB
+# cold-tier LSM store: memtable entries before a sorted run is committed,
+# prefix buckets per run, and the size-tiered compaction fan-in
+DEDUP_COLD_MEMTABLE_LIMIT = 1 << 16
+DEDUP_COLD_BUCKETS = 256
+DEDUP_COLD_COMPACT_FANIN = 4
+# promotion clock: one period every this many classify windows; cold
+# fingerprints hit at least PROMOTE_MIN_HITS times in a period are promoted
+DEDUP_TIER_CLOCK_WINDOWS = 8
+DEDUP_TIER_PROMOTE_MIN_HITS = 2

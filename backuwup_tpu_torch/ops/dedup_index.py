@@ -89,24 +89,27 @@ def _walk_plain(k2, v1, q, base, start, cap: int, max_probes: int,
                 probing: torch.Tensor, match: bool = True):
     """Linear probe of every ``probing`` query: ``(found, slot, done)``
     with ``slot`` the local index of the first slot holding the key (when
-    ``match``) or empty, -1 if none within ``max_probes`` steps."""
+    ``match``) or empty, -1 if none within ``max_probes`` steps.  Each
+    step reads only the lanes still walking."""
     done = ~probing
     found = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
     slot = torch.full_like(found, -1)
+    live = torch.nonzero(probing).reshape(-1)
     for p in range(max_probes):
-        if bool(done.all()):
+        if live.numel() == 0:
             break  # every later step is a no-op
-        idx = (start + p) % cap
-        k = k2[base + idx]
-        empty = (k == 0).all(dim=1)
-        term = empty
+        idx = (start[live] + p) % cap
+        g = base[live] + idx
+        k = k2[g]
+        term = (k == 0).all(dim=1)
         if match:
-            hit = (k == q).all(dim=1)
-            term = hit | empty
-            found = torch.where(~done & hit,
-                                (from_bits(v1[base + idx]) + 1) & M32, found)
-        slot = torch.where(~done & term, idx, slot)
-        done = done | term
+            hit = (k == q[live]).all(dim=1)
+            term = hit | term
+            found[live[hit]] = (from_bits(v1[g[hit]]) + 1) & M32
+        ended = live[term]
+        slot[ended] = idx[term]
+        done[ended] = True
+        live = live[~term]
     return found, slot, done
 
 
@@ -156,6 +159,8 @@ def insert_table_plain(keys: torch.Tensor, values: torch.Tensor,
         race = is_new & ~(k2[g] == q).all(dim=1)
         exh = exh | (active & ~done)
         active = race
+        if not bool(active.any()):
+            break  # a round with no racing lane changes nothing
     lost = active.to(torch.int32) * LOST_RACE + exh.to(torch.int32) \
         * LOST_EXHAUSTED
     return to_bits(found), lost

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port's manifest plane on one card.
+"""Chip smoke test of the PyTorch/CUDA port's backup data plane on one card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -41,7 +41,19 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    stream over small segments) plus the main path's largest shapes (one
    96 MiB one-row batch, the 304 MiB long stream) held equal to the
    port's ``cdc_cpu`` + ``blake3_cpu`` oracles, run in up to 8 worker
-   processes.
+   processes;
+5. the pack phase (:func:`phase_pack`), the backup data plane at a real
+   user's size: a ``BlobIndex`` authority of 6,000,000 synthetic digests,
+   the ``TieredDedupIndex`` on the card at the default budget (hot table
+   at its 2^23-slot cap, the rest in the cold store), ``DirPacker`` over
+   ``GpuBackend`` backing up a ~1.1 GiB tree, a recency shift of at least
+   2,000,000 fresh fingerprints that demotes the tree's, then an
+   incremental backup with ~0.4 GiB more; each root equal to the
+   host-only packer's, both restores byte-identical, every manifest equal
+   to the oracles, no divergence, the first tree's chunks all duplicates
+   (some answered by the cold tier), the hot table under the budget; and
+   a smaller history's front growing below the cap (K5's migration rounds
+   between CUDA events, held against the plain migration).
 
 Prints a ``{"kernels": [...]}`` JSON line and, last, the device line.
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -949,6 +961,545 @@ def oracle_manifests(streams, params, workers: int):
             for k in range(len(streams))]
 
 
+
+# --- 5. the pack phase: a directory to sealed packfiles and back -------------
+
+# A real user's size: an authority of 6,000,000 blobs (an earlier history of
+# ~6 TB at the default 1 MiB chunk), the tiered front at the default budget
+# (its hot table starts at the 2^23-slot cap), and two backups of a tree on
+# local disk, ~1.5 GiB in all.  Between them ``shift`` fresh fingerprints
+# (at least; see ``recency_shift``) push the first tree's out of the
+# recency window.  A smaller history (2^19 blobs) shows the front growing
+# below the cap, which is where K5's migration runs.  The tree: 96 MiB
+# files (one-row batches), files log-uniform over 256 KiB-16 MiB
+# (multi-row batches), files of 1 B-256 KiB (the tiny path), exact repeats
+# of earlier files, and one file of repeated 8 MiB blocks larger than the
+# packer's 256 MiB ``batch_bytes`` (the ``manifest_stream`` path).
+PACK_SPEC = {
+    "authority": 6_000_000,
+    "shift": 2_000_000,
+    "shift_block": 1 << 16,
+    "growth_authority": 1 << 19,
+    "growth_capacity": None,  # derived from the authority, as a user's
+    "budget": None,  # DEDUP_HBM_BUDGET_BYTES
+    "batch_bytes": None,  # DirPacker's default, 256 MiB
+    "big": 96 * MiB,
+    "multi": (256 * 1024, 16 * MiB),
+    "tiny": 256 * 1024,
+    "stream_block": 8 * MiB,
+    "stream_blocks": 33,
+    "A": {"big": 3, "multi": 100, "tiny": 1000, "repeats": 10, "stream": 1},
+    "B": {"big": 1, "multi": 60, "tiny": 600, "repeats": 5, "stream": 0},
+}
+
+
+def write_tree(rng, root: Path, counts, spec) -> int:
+    """Seeded files under ``root``; returns their bytes."""
+    total = 0
+
+    def put(rel, data):
+        nonlocal total
+        p = root / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(data)
+        total += len(data)
+
+    for k in range(counts["big"]):
+        put(f"big/b{k}.bin", rng.bytes(spec["big"]))
+    lo, hi = spec["multi"]
+    multi = []
+    for k, n in enumerate(np.exp(rng.uniform(np.log(lo + 1), np.log(hi),
+                                             counts["multi"]))):
+        multi.append(rng.bytes(int(n)))
+        put(f"multi/m{k // 25:02d}/f{k:03d}.bin", multi[-1])
+    for k, n in enumerate(rng.integers(1, spec["tiny"] + 1, counts["tiny"])):
+        put(f"tiny/t{k // 100:02d}/f{k:04d}.bin", rng.bytes(int(n)))
+    for k in range(counts["repeats"]):
+        put(f"rep/r{k:02d}.bin", multi[(7 * k) % len(multi)])
+    if counts["stream"]:
+        put("stream/long.bin",
+            rng.bytes(spec["stream_block"]) * spec["stream_blocks"])
+    return total
+
+
+def synthetic_authority(rng, index, n: int, per_pack: int = 3) -> None:
+    """``n`` seeded 32-byte digests committed to ``index`` under synthetic
+    packfile ids, ``per_pack`` blobs each (3 MiB packfiles of 1 MiB
+    chunks)."""
+    raw = rng.bytes(32 * n)
+    pids = rng.bytes(12 * -(-n // per_pack))
+    for k in range(0, n, per_pack):
+        j = 12 * (k // per_pack)
+        index.finalize_packfile(pids[j:j + 12], [
+            raw[32 * i:32 * i + 32] for i in range(k, min(n, k + per_pack))])
+
+
+def fresh_hashes(rng, n: int):
+    raw = rng.bytes(32 * n)
+    return [raw[32 * i:32 * i + 32] for i in range(n)]
+
+
+def metric(name, **labels) -> float:
+    from backuwup_tpu_torch.obs import metrics as obs_metrics
+
+    m = obs_metrics.registry().get(name)
+    return 0.0 if m is None else m.value(**labels)
+
+
+def run_backup(sync, src: Path, repo: Path, keys, index, front, backend,
+               batch_bytes):
+    """One backup as the engine runs it: a fresh writer sealing on
+    ``PACK_SEAL_WORKERS`` threads, its packfiles committed to ``index``;
+    returns (root, stats, writer, blob hashes written, seconds)."""
+    from backuwup_tpu_torch import defaults
+    from backuwup_tpu_torch.snapshot.packer import DirPacker
+    from backuwup_tpu_torch.snapshot.packfile import PackfileWriter
+
+    writer = PackfileWriter(
+        keys, repo / "pack",
+        on_packfile=lambda pid, path, hashes, size:
+        index.finalize_packfile(pid, hashes),
+        seal_workers=defaults.PACK_SEAL_WORKERS)
+    added = []
+    add = writer.add_blob
+
+    def recording(blob):
+        added.append(bytes(blob.hash))
+        add(blob)
+
+    writer.add_blob = recording
+    kw = {"batch_bytes": batch_bytes} if batch_bytes else {}
+    packer = DirPacker(backend, writer, index, dedup_index=front, **kw)
+    sync()
+    t0 = time.perf_counter()
+    try:
+        root = packer.pack(src)
+    finally:
+        writer.shutdown()
+    sync()
+    return root, packer.stats, writer, added, time.perf_counter() - t0
+
+
+def resolver(keys, index, pack_dir: Path):
+    from backuwup_tpu_torch.snapshot.packfile import PackfileReader
+
+    reader = PackfileReader(keys, pack_dir)
+
+    def resolve(h):
+        pid = index.lookup(h)
+        if pid is None:
+            raise KeyError(bytes(h).hex())
+        return reader.get_blob(pid, h)
+
+    return resolve
+
+
+def file_manifests(resolve, snapshot: bytes):
+    """{path: [chunk hash, ...]} of every file of a snapshot, and
+    {path: tree hash} of every directory."""
+    from backuwup_tpu_torch.snapshot.unpacker import fetch_full_tree
+    from backuwup_tpu_torch.wire import TreeKind
+
+    files, dirs = {}, {"": snapshot}
+    queue = [(fetch_full_tree(resolve, snapshot), "")]
+    while queue:
+        tree, path = queue.pop()
+        for h in tree.children:
+            child = fetch_full_tree(resolve, h)
+            rel = f"{path}/{child.name}" if path else child.name
+            if child.kind == TreeKind.DIR:
+                dirs[rel] = bytes(h)
+                queue.append((child, rel))
+            else:
+                files[rel] = [bytes(c) for c in child.children]
+    return files, dirs
+
+
+def same_tree(a: Path, b: Path) -> int:
+    """Raise unless the two trees hold the same paths and bytes; returns
+    the bytes compared."""
+    pa = sorted(str(p.relative_to(a)) for p in a.rglob("*"))
+    pb = sorted(str(p.relative_to(b)) for p in b.rglob("*"))
+    if pa != pb:
+        raise AssertionError(f"restored tree differs in its paths: {a} {b}")
+    n = 0
+    for rel in pa:
+        if (a / rel).is_file():
+            da = (a / rel).read_bytes()
+            if da != (b / rel).read_bytes():
+                raise AssertionError(f"restored file differs: {rel}")
+            n += len(da)
+    return n
+
+
+def grow_front(torch, rng, tmp: Path, spec, device, card, counters):
+    """A smaller history's front grows below the budget cap: the
+    authority holds ``growth_authority`` digests, the front starts at the
+    capacity they ask for, and fresh fingerprints through
+    ``classify_insert`` fill it until ``_grow`` migrates it 4x on the
+    device (K5's migration rounds, each between CUDA events).  The grown
+    table is held against the plain migration of the same old table.
+    Returns (ms of the growth, rounds, plain ms, max_abs_err, bound ms,
+    launches, old capacity, keys placed)."""
+    from backuwup_tpu_torch.crypto import KeyManager
+    from backuwup_tpu_torch.dedupstore import TieredDedupIndex
+    from backuwup_tpu_torch.ops import dedup_index as di
+    from backuwup_tpu_torch.snapshot.blob_index import BlobIndex
+
+    cuda = device.type == "cuda"
+    index = BlobIndex(KeyManager.from_secret(rng.bytes(32)), tmp / "index")
+    synthetic_authority(rng, index, spec["growth_authority"])
+    front = TieredDedupIndex(index, capacity=spec["growth_capacity"],
+                             device=device, cold_dir=tmp / "cold",
+                             hbm_budget_bytes=spec["budget"])
+    cap0 = front.capacity
+    rounds_ms, record = [], {}
+    grown, round_fn = di.ShardedDedupIndex.grown, di.migrate_round
+
+    def stamp():
+        if not cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def elapsed(a, b):
+        if not cuda:
+            return (b - a) * 1e3
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    def timed_round(*args, **kw):
+        t0 = stamp()
+        out = round_fn(*args, **kw)
+        rounds_ms.append(elapsed(t0, stamp()))
+        return out
+
+    def checked_grown(self, new_capacity):
+        old_k, old_v = self.keys.clone(), self.values.clone()
+        # the wrapper stands in for the module's migrate_round, whose
+        # launch count (``migrate_round.launches += 1``) it then carries
+        timed_round.launches = round_fn.launches
+        di.migrate_round = timed_round
+        try:
+            out = grown(self, new_capacity)
+        finally:
+            di.migrate_round = round_fn
+            round_fn.launches = timed_round.launches
+        nk, nv = torch.zeros_like(out.keys), torch.zeros_like(out.values)
+        pending = (old_k != 0).any(dim=2).reshape(-1).to(torch.uint8)
+        if cuda:
+            torch.cuda.synchronize()
+        p0 = time.perf_counter()
+        while True:
+            more, exhausted = di.migrate_round_plain(
+                old_k, old_v, nk, nv, pending, max_probes=self.max_probes)
+            if exhausted:
+                raise AssertionError("plain migration exhausted")
+            if not more:
+                break
+        if cuda:
+            torch.cuda.synchronize()
+        record.update(plain_ms=(time.perf_counter() - p0) * 1e3,
+                      err=max_abs_err(torch, [out.keys.view(-1),
+                                              out.values.view(-1)],
+                                      [nk.view(-1), nv.view(-1)]),
+                      placed=int((old_k != 0).any(dim=2).sum()),
+                      old_cap=self.capacity, new_cap=new_capacity)
+        return out
+
+    zero_counts(counters)
+    di.ShardedDedupIndex.grown = checked_grown
+    fed, step = 0, min(8192, max(1, cap0 // 8))
+    try:
+        while front.capacity == cap0:
+            if fed >= 4 * cap0:
+                raise AssertionError("the front never grew")
+            hs = fresh_hashes(rng, step)
+            if any(front.classify_insert(hs)):
+                raise AssertionError("a fresh fingerprint read as duplicate")
+            for h in hs:
+                index.mark_queued(h)
+            fed += len(hs)
+    finally:
+        di.ShardedDedupIndex.grown = grown
+    launches, inserts = di.migrate_round.launches, di.insert_table.launches
+    if launches <= 0 or launches != len(rounds_ms) or record["err"]:
+        raise AssertionError("the growth did not run K5's migration rounds "
+                             "bit-exact against the plain version")
+    placed, old_cap = record["placed"], record["old_cap"]
+    alpha = placed / record["new_cap"]
+    _hit, miss = probe_steps(alpha)
+    bound, by = bound_ms(20 * old_cap + SECTOR * placed * (1 + miss), 0)
+    ms = sum(rounds_ms)
+    log(f"pack: growth below the cap: a front over {spec['growth_authority']}"
+        f" digests starts at {cap0} slots ({front.hbm_budget_bytes} B "
+        f"budget); after {fed} fresh fingerprints _grow migrated "
+        f"{placed} keys {old_cap} -> {record['new_cap']} slots in {launches}"
+        f" K5 migration rounds ({inserts} K5 insert launches in all): "
+        f"{ms:.4f} ms (rounds "
+        f"{[round(t, 4) for t in rounds_ms]}), plain {record['plain_ms']:.4f}"
+        f" ms, bound {bound:.4f} ms ({by}: old table read, a 32 B sector per"
+        f" key placed and {miss:.3f} probe steps per key at the new load "
+        f"{alpha:.4f}); bit-exact vs plain [{card}]")
+    return {"name": "dedup_migrate", "route": "cuda",
+            "source": "backuwup_tpu_torch/csrc/dedup_probe.cu",
+            "replaces": "backuwup_tpu/ops/dedup_index.py:354 (XLA program "
+                        "on the TPU, not a Pallas kernel)",
+            "launches": launches, "max_abs_err": record["err"], "ms": ms,
+            "plain_ms": record["plain_ms"], "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+def recency_shift(rng, front, index, a_chunks, spec, card):
+    """Fresh fingerprints through ``classify_insert``, each marked in the
+    authority, in blocks, until at least ``spec['shift']`` went through
+    and the first tree's chunks have left the hot table (demoted): a
+    demotion keeps the newest quarter of the table, so the shift must
+    outnumber it after the first tree's last touch."""
+    a_keys = {h[:16] for h in a_chunks}
+    fresh, checked, t0 = 0, -1.0, time.perf_counter()
+    hot_a = len(a_keys)
+    while True:
+        hs = fresh_hashes(rng, spec["shift_block"])
+        for s in range(0, len(hs), 8192):
+            batch = hs[s:s + 8192]
+            if any(front.classify_insert(batch)):
+                raise AssertionError("a fresh fingerprint read as duplicate")
+            for h in batch:
+                index.mark_queued(h)
+        fresh += len(hs)
+        demoted = metric("bkw_tier_demotions_total")
+        if fresh >= spec["shift"] and demoted != checked:
+            checked = demoted
+            keys, _vals = front.sharded.dump()
+            le = np.ascontiguousarray(keys.astype("<u4")).tobytes()
+            hot = {le[16 * i:16 * i + 16] for i in range(len(keys))}
+            hot_a = len(a_keys & hot)
+            if hot_a < len(a_keys):
+                break
+        if fresh >= 6 * spec["shift"]:
+            raise AssertionError("the first tree never left the hot table")
+    log(f"pack: recency shift: {fresh} fresh fingerprints through "
+        f"classify_insert in {time.perf_counter() - t0:.1f} s; demotions so "
+        f"far {int(metric('bkw_tier_demotions_total'))} keys; of the first "
+        f"tree's {len(a_keys)} chunk keys {hot_a} still hot; hot table "
+        f"{front.hbm_table_bytes} B, cold store {len(front.cold)} records in "
+        f"{front.cold.run_count} runs [{card}]")
+    return fresh
+
+
+def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None):
+    """The backup data plane at a real user's size: directory -> chunks ->
+    fingerprints -> tiered dedup -> sealed packfiles + snapshot root ->
+    restore, through the port's entry points; returns the migration row."""
+    import shutil
+    import tempfile
+
+    from backuwup_tpu_torch import defaults
+    from backuwup_tpu_torch.crypto import KeyManager
+    from backuwup_tpu_torch.dedupstore import TieredDedupIndex
+    from backuwup_tpu_torch.ops import dedup_index as di
+    from backuwup_tpu_torch.ops.backend import GpuBackend
+    from backuwup_tpu_torch.snapshot import packfile
+    from backuwup_tpu_torch.snapshot.blob_index import BlobIndex
+    from backuwup_tpu_torch.snapshot.unpacker import DirUnpacker
+    from backuwup_tpu_torch.utils import zstd
+    from backuwup_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    aead = f"{packfile.AESGCM.__module__}.{packfile.AESGCM.__name__}"
+    codec = ("zstd level %d (libzstd through ctypes)"
+             % defaults.ZSTD_COMPRESSION_LEVEL if zstd.available()
+             else "zlib (no libzstd on this host)")
+    log(f"pack: AEAD {aead}; codec {codec}; fsync "
+        f"{'on' if packfile.durable.FSYNC_ENABLED else 'off'}; seal workers "
+        f"{defaults.PACK_SEAL_WORKERS}")
+    tmp = Path(tempfile.mkdtemp(prefix="bkw_pack_"))
+    try:
+        migrate_row = grow_front(torch, rng, tmp / "growth", spec, device,
+                                 card, counters)
+
+        # the authority and the hot state at the default budget
+        keys = KeyManager.from_secret(rng.bytes(32))
+        t0 = time.perf_counter()
+        index = BlobIndex(keys, tmp / "repo" / "index")
+        synthetic_authority(rng, index, spec["authority"])
+        t1 = time.perf_counter()
+        front = TieredDedupIndex(index, device=device,
+                                 cold_dir=tmp / "repo" / "cold",
+                                 hbm_budget_bytes=spec["budget"])
+        sync()
+        budget = front.hbm_budget_bytes
+        hot = int((front.sharded.keys != 0).any(dim=2).sum())
+        log(f"pack: authority {len(index)} blobs in {t1 - t0:.1f} s; tiered "
+            f"front in {time.perf_counter() - t1:.1f} s: hot table "
+            f"{front.capacity} slots ({front.hbm_table_bytes} B of a {budget}"
+            f" B budget) seeded with {hot} keys (load "
+            f"{hot / front.capacity:.4f}), cold store {len(front.cold)} "
+            f"records in {front.cold.run_count} runs [{card}]")
+        if front.hbm_table_bytes > budget or not len(front.cold):
+            raise AssertionError("the front is not at its cap with a cold "
+                                 "tier")
+        lost = []  # lost lanes per device batch (the pipeline's hook)
+        note = front.note_window
+
+        def counting_note(lanes, n_lost=0):
+            lost.append(n_lost)
+            note(lanes, n_lost)
+
+        front.note_window = counting_note
+        hints = []  # (hashes, flags, cold hits) of each resolve_hints call
+        resolve_hints = front.resolve_hints
+
+        def recording_hints(hashes, raw):
+            c0 = metric("bkw_tier_hits_total", path="cold")
+            flags = resolve_hints(hashes, raw)
+            hints.append((hashes, flags,
+                          metric("bkw_tier_hits_total", path="cold") - c0))
+            return flags
+
+        front.resolve_hints = recording_hints
+        backend = GpuBackend(strict_overflow=True, device=device)
+
+        src = tmp / "src"
+        t0 = time.perf_counter()
+        size_a = write_tree(rng, src / "A", spec["A"], spec)
+        log(f"pack: tree A {size_a / MiB:.1f} MiB written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        host_idx = BlobIndex(keys, tmp / "host" / "index")
+        results = []
+        for label, size in (("backup 1 (A)", size_a), ("backup 2 (A+B)", 0)):
+            if results:
+                # between the backups: the recency shift, then tree B
+                recency_shift(rng, front, index, a_chunks, spec, card)
+                t0 = time.perf_counter()
+                size_b = write_tree(rng, src / "B", spec["B"], spec)
+                size = size_a + size_b
+                log(f"pack: tree B {size_b / MiB:.1f} MiB written in "
+                    f"{time.perf_counter() - t0:.1f} s")
+            hints.clear()
+            lost.clear()
+            host_before = metric("bkw_tier_probes_total", path="host")
+            demoted_before = metric("bkw_tier_demotions_total")
+            zero_counts(counters)
+            root, stats, writer, added, secs = run_backup(
+                sync, src, tmp / "repo", keys, index, front, backend,
+                spec["batch_bytes"])
+            launches = read_counts(counters)
+            k5 = (di.insert_table.launches, di.probe_table.launches,
+                  di.migrate_round.launches)
+            host_root, _hs, _w, _a, host_secs = run_backup(
+                sync, src, tmp / "host", keys, host_idx, None, backend,
+                spec["batch_bytes"])
+            # only its index matters for the next backup: free the disk
+            shutil.rmtree(tmp / "host" / "pack", ignore_errors=True)
+            st = writer.stage_seconds
+            cold_hits = sum(c for _h, _f, c in hints)
+            log(f"pack: {label}: {stats.files} files, {stats.dirs} dirs, "
+                f"{size / MiB:.1f} MiB in {secs:.3f} s = {size / MiB / secs:.1f}"
+                f" MiB/s end to end; {stats.chunks} chunks, "
+                f"{stats.chunks_deduped} deduped ({stats.bytes_deduped / MiB:.1f}"
+                f" MiB), {len(added)} blobs sealed into "
+                f"{writer.bytes_written / MiB:.1f} MiB of packfiles; "
+                f"divergences {stats.dedup_divergences} [{card}]")
+            log(f"pack: {label}: time split: backend calls (chunk + "
+                f"fingerprint + classify on the card, with their host driver)"
+                f" {stats.chunk_hash_s:.3f} s; seal (zstd + AES-GCM, summed over"
+                f" {defaults.PACK_SEAL_WORKERS} workers) {st['seal']:.3f} s; "
+                f"write (assemble + fsync, writer thread) {st['write']:.3f} s; "
+                f"packer stalled on the seal queue {st['stall']:.3f} s; device"
+                f" busy not measured in this phase [{card}]")
+            log(f"pack: {label}: launches {launches} (K5 insert {k5[0]}, "
+                f"probe {k5[1]}, migrate {k5[2]}); lost lanes "
+                f"{sum(lost)} over {len(lost)} batches; host-resolved hashes "
+                f"{int(metric('bkw_tier_probes_total', path='host') - host_before)}"
+                f"; cold hits among chunk fingerprints {int(cold_hits)}; "
+                f"demotions {int(metric('bkw_tier_demotions_total') - demoted_before)}"
+                f" keys; host-only dedup (dedup_index=None) "
+                f"{size / MiB / host_secs:.1f} MiB/s [{card}]")
+            if root != host_root:
+                raise AssertionError(f"{label}: snapshot root differs from the "
+                                     "host-only packer's")
+            if stats.dedup_divergences or stats.failed_files:
+                raise AssertionError(f"{label}: divergences or failed files")
+            for name in ("scan_candidates", "blake3_leaf"):
+                if launches[name] <= 0:
+                    raise AssertionError(f"{label}: kernel {name} not launched")
+            if k5[0] <= 0:
+                raise AssertionError(f"{label}: K5 insert not launched")
+            if front.hbm_table_bytes > budget:
+                raise AssertionError(f"{label}: hot table over the budget")
+            resolve = resolver(keys, index, tmp / "repo" / "pack")
+            files, dirs = file_manifests(resolve, root)
+            results.append((root, files, dirs, stats, added, cold_hits))
+            if len(results) == 1:
+                a_chunks = {h for hs in files.values() for h in hs}
+                n_a_chunks = sum(map(len, files.values()))
+        (root1, files1, dirs1, _s1, _a1, _c1), \
+            (root2, files2, dirs2, stats2, added2, cold2) = results
+
+        # the second backup: every chunk of A a duplicate, none re-sealed
+        if dirs2.get("A") != dirs1.get("A"):
+            raise AssertionError("tree A's hash changed between the backups")
+        a_hints = [f for hs, fl, _c in hints for h, f in zip(hs, fl)
+                   if h in a_chunks]
+        if not all(a_hints) or a_chunks & set(added2):
+            raise AssertionError("a chunk of A was not a duplicate in backup 2")
+        if stats2.chunks_deduped < n_a_chunks:
+            raise AssertionError("backup 2 deduped fewer chunks than A holds")
+        if metric("bkw_tier_demotions_total") < 1 or cold2 < 1:
+            raise AssertionError("no demotion, or no cold hit among real "
+                                 "chunk fingerprints")
+        high = metric("bkw_tier_hbm_highwater_bytes")
+        if high > budget:
+            raise AssertionError("the hot table exceeded the budget")
+        log(f"pack: backup 2: {len(a_hints)} of A's chunk occurrences carried "
+            f"device hints, all duplicates; {n_a_chunks} chunks in A, "
+            f"{stats2.chunks_deduped} deduped; none of A's chunks re-sealed; "
+            f"cold hits {int(cold2)}; hot-table high water {int(high)} B of "
+            f"{budget} B")
+
+        # restore both snapshots and hold the manifests to the oracles
+        for k, (root, files, dirs) in enumerate(((root1, files1, dirs1),
+                                                 (root2, files2, dirs2))):
+            dest = tmp / f"restored{k + 1}"
+            t0 = time.perf_counter()
+            DirUnpacker(resolver(keys, index, tmp / "repo" / "pack")).unpack(
+                root, dest)
+            secs = time.perf_counter() - t0
+            if k == 0:
+                n = same_tree(dest / "A", src / "A")
+                if sorted(p.name for p in dest.iterdir()) != ["A"]:
+                    raise AssertionError("restore 1 holds more than A")
+            else:
+                n = same_tree(dest, src)
+            log(f"pack: restore {k + 1}: {n / MiB:.1f} MiB byte-identical to "
+                f"the source tree, restored in {secs:.1f} s")
+            shutil.rmtree(dest)
+        rels = sorted(files2)
+        streams = [(src / rel).read_bytes() for rel in rels]
+        workers = min(8, os.cpu_count() or 1)
+        t0 = time.perf_counter()
+        want = oracle_manifests(streams, backend.params, workers)
+        for rel, w in zip(rels, want):
+            if [h for _o, _n, h in w] != files2[rel]:
+                raise AssertionError(f"{rel}: manifest differs from the oracle")
+        log(f"pack: oracle parity: {len(rels)} files, "
+            f"{sum(map(len, streams)) / MiB:.1f} MiB, every manifest of "
+            f"backup 2 equal to cdc_cpu + blake3_cpu (oracles in "
+            f"{time.perf_counter() - t0:.1f} s on {workers} processes)")
+        return migrate_row
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1086,6 +1637,15 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s on {workers} processes)")
     if checked < 16 * MiB or len(multi) < 2:
         raise AssertionError("parity subset too small")
+    del corpus, main_out, part, got, streams, want, long_data
+    torch.cuda.empty_cache()
+
+    # 5. the pack phase: the backup data plane from a directory to sealed
+    # packfiles and back, at a real user's size
+    t0 = time.perf_counter()
+    rows.append(phase_pack(torch, np.random.default_rng([args.seed, 3]),
+                           card, counters))
+    log(f"pack phase: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

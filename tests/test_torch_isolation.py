@@ -32,8 +32,12 @@ def _imported_modules(path: Path):
             yield node.module or ""
 
 
+def _scanned():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
 def test_no_jax_or_reference_imports_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = _scanned()
     assert len(files) > 10
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
@@ -41,6 +45,28 @@ def test_no_jax_or_reference_imports_in_port_sources():
     # the exact-name rule must not confuse the port with the reference
     assert not _forbidden("backuwup_tpu_torch.ops")
     assert _forbidden("backuwup_tpu.ops") and _forbidden("jax.numpy")
+
+
+@pytest.mark.parametrize("part", ["obs", "dedupstore", "snapshot", "utils",
+                                  "crypto.py", "wire.py", "wordlist.py"])
+def test_host_layer_copies_are_scanned_and_stand_alone(part):
+    """The host layers the port copied from the reference (its own
+    ``obs``, ``dedupstore``, ``snapshot`` and ``utils`` packages and the
+    top-level ``crypto``, ``wire`` and ``wordlist`` modules) are in the
+    scanned set and import nothing of the JAX package or of JAX."""
+    path = PORT / part
+    files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
+    assert files and all(f.is_file() for f in files)
+    assert set(files) <= set(_scanned())
+    for f in files:
+        mods = list(_imported_modules(f))
+        assert [m for m in mods if _forbidden(m)] == [], f
+        # relative imports stay inside the port (level 1 or 2 from here)
+        tree = ast.parse(f.read_text(), filename=str(f))
+        depth = len(f.relative_to(PORT).parts) - 1
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                assert node.level <= depth + 1, (f, node.module)
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
