@@ -71,3 +71,50 @@ DEDUP_COLD_COMPACT_FANIN = 4
 # fingerprints hit at least PROMOTE_MIN_HITS times in a period are promoted
 DEDUP_TIER_CLOCK_WINDOWS = 8
 DEDUP_TIER_PROMOTE_MIN_HITS = 2
+
+# --- erasure-coded stripes (backuwup_tpu/defaults.py:73-79) -----------------
+# Each sealed packfile is split into RS_K data shards plus RS_M parity
+# shards (systematic GF(2^8) Reed-Solomon); any RS_K of the RS_K+RS_M
+# shards reconstruct the packfile.
+RS_K = 4
+RS_M = 2
+
+# --- peer storage quota and receiver partials (backuwup_tpu/defaults.py:45,
+# :309) ----------------------------------------------------------------------
+PEER_OVERUSE_GRACE = 16 * MiB  # tolerated overshoot per peer
+# a receiver-side partial transfer untouched for this long is abandoned
+PARTIAL_STORE_TTL_S = 24 * 3600.0
+
+# --- unified retry policies (backuwup_tpu/defaults.py:49-64) -----------------
+RETRY_JITTER = 0.1  # default +/- fraction applied to every delay
+DIAL_RETRY_BASE_S = 0.5
+DIAL_RETRY_CAP_S = 2.0
+DIAL_RETRY_ATTEMPTS = 2  # retries after the first dial (3 dials total)
+WS_RECONNECT_BASE_S = 0.2
+WS_RECONNECT_CAP_S = 30.0
+STORAGE_REQUEST_RETRY_S = 10.0
+STORAGE_REQUEST_RETRY_CAP_S = 60.0
+SEND_IDLE_BASE_S = 0.05
+SEND_IDLE_CAP_S = 0.25
+PEER_WAIT_BASE_S = 0.2
+PEER_WAIT_CAP_S = 1.0
+
+# --- capacity-aware placement (backuwup_tpu/defaults.py:131, :164-176) -------
+# Peers are ranked by log2-bucketed (EWMA throughput x success ratio) with
+# free space as the tiebreak; a peer needs this many samples before its
+# measurement outranks the neutral prior, so fresh peers stay schedulable.
+TRANSFER_MIN_THROUGHPUT_BPS = 256 * KiB
+PLACEMENT_MIN_SAMPLES = 3
+PLACEMENT_NEUTRAL_SCORE_BPS = TRANSFER_MIN_THROUGHPUT_BPS
+# a placement-demoted peer gets another chance after this long
+PLACEMENT_PROBATION_S = 600.0
+
+# --- storage attestation (backuwup_tpu/defaults.py:194-202) ------------------
+AUDIT_CHALLENGES_PER_PACKFILE = 16  # precomputed table entries per packfile
+AUDIT_WINDOW_BYTES = 64 * KiB  # sampled window length (clamped to file size)
+AUDIT_SAMPLES_PER_ROUND = 8  # challenges issued per peer per audit round
+AUDIT_INTERVAL_S = 6 * 3600.0  # healthy-peer re-audit cadence
+AUDIT_RETRY_BASE_S = 60.0  # first retry delay after a miss/failure
+AUDIT_BACKOFF_CAP_S = 24 * 3600.0  # exponential-backoff ceiling
+AUDIT_DEMOTE_MISSES = 3  # consecutive offline windows before demotion
+AUDIT_DEMOTE_FAILURES = 1  # confirmed bad/missing proofs before demotion

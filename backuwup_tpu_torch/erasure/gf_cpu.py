@@ -1,0 +1,192 @@
+"""Pure-numpy GF(2^8) Reed-Solomon oracle.
+
+Counterpart of ``backuwup_tpu/erasure/gf_cpu.py``, copied so that the port
+imports nothing of the JAX package; every table and result is identical.
+
+The ground truth for the erasure subsystem: log/exp tables over the
+primitive polynomial 0x11d, a *systematic* Cauchy generator matrix
+(identity over the k data rows, an m x k Cauchy block for parity -- every
+k x k submatrix of a Cauchy-extended identity is invertible, so any k of
+the k+m shards reconstruct), vectorized encode via a 256x256
+multiplication table, and decode by inverting the surviving k x k
+generator submatrix with Gauss-Jordan elimination over the field.  The
+device product (:mod:`.rs_gpu`, kernel ``csrc/gf_matmul.cu``) must agree
+bit for bit with everything here.
+
+Everything operates on ``numpy.uint8`` arrays shaped ``(shards, L)``.
+Matrix inversion is O(k^3) on small matrices and stays on the host for
+the device backend too.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+
+_POLY = 0x11D  # x^8 + x^4 + x^3 + x^2 + 1, the classic RS-255 choice
+
+# log/exp over the multiplicative group generated by x=2; EXP is doubled
+# to 510 entries so mul never reduces (log a + log b) mod 255 explicitly.
+GF_EXP = np.zeros(510, dtype=np.uint8)
+GF_LOG = np.zeros(256, dtype=np.int64)  # GF_LOG[0] is unused (log 0 undefined)
+_x = 1
+for _i in range(255):
+    GF_EXP[_i] = _x
+    GF_LOG[_x] = _i
+    _x <<= 1
+    if _x & 0x100:
+        _x ^= _POLY
+GF_EXP[255:510] = GF_EXP[0:255]
+
+# Full product table: MUL_TABLE[a, b] = a * b in GF(2^8).  64 KiB; serves
+# the vectorized CPU row-ops below and the plain version in rs_gpu.py.
+_a = np.arange(256)
+MUL_TABLE = np.zeros((256, 256), dtype=np.uint8)
+_nz = _a[1:]
+MUL_TABLE[1:, 1:] = GF_EXP[(GF_LOG[_nz][:, None] + GF_LOG[_nz][None, :])]
+
+
+def gf_mul(a: int, b: int) -> int:
+    return int(MUL_TABLE[a, b])
+
+
+def gf_inv(a: int) -> int:
+    if a == 0:
+        raise ZeroDivisionError("GF(2^8) inverse of 0")
+    return int(GF_EXP[255 - GF_LOG[a]])
+
+
+def generator_matrix(k: int, m: int) -> np.ndarray:
+    """Systematic (k+m) x k generator: identity stacked on a Cauchy block.
+
+    Cauchy parity rows use x_i = k + i, y_j = j; the x and y sets are
+    disjoint whenever k + m <= 256, which makes every k x k submatrix of
+    the full matrix invertible (the any-k-of-n property).
+    """
+    if not (1 <= k and 0 <= m and k + m <= 256):
+        raise ValueError(f"unsupported RS geometry k={k} m={m}")
+    gen = np.zeros((k + m, k), dtype=np.uint8)
+    gen[:k] = np.eye(k, dtype=np.uint8)
+    for i in range(m):
+        for j in range(k):
+            gen[k + i, j] = gf_inv((k + i) ^ j)
+    return gen
+
+
+def gf_matmul(mat: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """GF(2^8) matrix product: out[i, l] = XOR_j mat[i, j] * data[j, l]."""
+    mat = np.asarray(mat, dtype=np.uint8)
+    data = np.asarray(data, dtype=np.uint8)
+    # gather per-(i,j) products, then XOR-reduce over j
+    prods = MUL_TABLE[mat[:, :, None], data[None, :, :]]
+    return np.bitwise_xor.reduce(prods, axis=1)
+
+
+def gf_invert_matrix(mat: np.ndarray) -> np.ndarray:
+    """Gauss-Jordan inversion over GF(2^8); raises on a singular matrix."""
+    mat = np.asarray(mat, dtype=np.uint8)
+    k = mat.shape[0]
+    if mat.shape != (k, k):
+        raise ValueError("matrix must be square")
+    aug = np.concatenate(
+        [mat.copy(), np.eye(k, dtype=np.uint8)], axis=1).astype(np.uint8)
+    for col in range(k):
+        pivot = col + int(np.argmax(aug[col:, col] != 0))
+        if aug[pivot, col] == 0:
+            raise ValueError("singular matrix over GF(2^8)")
+        if pivot != col:
+            aug[[col, pivot]] = aug[[pivot, col]]
+        aug[col] = MUL_TABLE[np.uint8(gf_inv(int(aug[col, col]))), aug[col]]
+        for row in range(k):
+            if row != col and aug[row, col]:
+                aug[row] ^= MUL_TABLE[aug[row, col], aug[col]]
+    return aug[:, k:]
+
+
+def decode_matrix(k: int, m: int, present: Sequence[int]) -> np.ndarray:
+    """k x (k+m) recovery matrix for the given surviving shard indices.
+
+    ``present`` must be k distinct indices in [0, k+m); the result R
+    satisfies ``data = R[:, present] @ shards[present]`` — equivalently,
+    R is the inverse of the surviving generator rows, scattered back to
+    full width (absent columns are zero) so callers can keep shard
+    arrays indexed by absolute shard number.
+    """
+    present = sorted(set(int(i) for i in present))
+    if len(present) != k:
+        raise ValueError(f"need exactly {k} distinct shard indices")
+    if present[0] < 0 or present[-1] >= k + m:
+        raise ValueError("shard index out of range")
+    sub = generator_matrix(k, m)[present]  # k x k, invertible by Cauchy
+    inv = gf_invert_matrix(sub)
+    full = np.zeros((k, k + m), dtype=np.uint8)
+    full[:, present] = inv
+    return full
+
+
+def encode_stripe(data_shards: np.ndarray, m: int) -> np.ndarray:
+    """(k, L) data shards -> (m, L) parity shards."""
+    data_shards = np.asarray(data_shards, dtype=np.uint8)
+    k = data_shards.shape[0]
+    if m == 0:
+        return np.zeros((0, data_shards.shape[1]), dtype=np.uint8)
+    parity_rows = generator_matrix(k, m)[k:]
+    return gf_matmul(parity_rows, data_shards)
+
+
+def decode_stripe(shards: Dict[int, np.ndarray], k: int, m: int,
+                  ) -> np.ndarray:
+    """Recover the (k, L) data shards from any k of the k+m shards.
+
+    ``shards`` maps absolute shard index -> (L,) uint8 payload; exactly
+    the first k present (lowest indices) are used.
+    """
+    if len(shards) < k:
+        raise ValueError(f"need {k} shards, have {len(shards)}")
+    present = sorted(shards)[:k]
+    lengths = {shards[i].shape[0] for i in present}
+    if len(lengths) != 1:
+        raise ValueError("shard payloads differ in length")
+    stacked = np.stack([np.asarray(shards[i], dtype=np.uint8)
+                        for i in present], axis=0)
+    rec = decode_matrix(k, m, present)[:, present]  # k x k over survivors
+    return gf_matmul(rec, stacked)
+
+
+def shard_len(orig_len: int, k: int) -> int:
+    """Per-shard payload length for a packfile of ``orig_len`` bytes."""
+    return -(-max(orig_len, 1) // k)
+
+
+def split_data(data: bytes, k: int) -> np.ndarray:
+    """Zero-pad ``data`` to k equal rows: the (k, L) data-shard matrix."""
+    ln = shard_len(len(data), k)
+    buf = np.zeros(k * ln, dtype=np.uint8)
+    buf[:len(data)] = np.frombuffer(data, dtype=np.uint8)
+    return buf.reshape(k, ln)
+
+
+def join_data(data_shards: np.ndarray, orig_len: int) -> bytes:
+    """Inverse of :func:`split_data`: drop the zero padding."""
+    return np.asarray(data_shards, dtype=np.uint8).reshape(-1)[
+        :orig_len].tobytes()
+
+
+def reconstruct(shards: Dict[int, np.ndarray], k: int, m: int,
+                missing: Sequence[int]) -> Dict[int, np.ndarray]:
+    """Rebuild the ``missing`` shard payloads from any k survivors.
+
+    Deterministic: a rebuilt shard is byte-identical to the original
+    (decode to data, re-encode the requested rows), which keeps
+    pre-computed per-shard audit challenge tables valid after repair.
+    """
+    data = decode_stripe(shards, k, m)
+    gen = generator_matrix(k, m)
+    out: Dict[int, np.ndarray] = {}
+    for idx in missing:
+        idx = int(idx)
+        if not 0 <= idx < k + m:
+            raise ValueError("shard index out of range")
+        out[idx] = gf_matmul(gen[idx:idx + 1], data)[0]
+    return out

@@ -45,6 +45,11 @@ SIGNATURES = {
                                    ctypes.c_longlong, ctypes.c_uint,
                                    ctypes.c_uint, _P], ctypes.c_int),
     },
+    "gf_matmul": {
+        "bkw_gf_matmul": ([_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_longlong, ctypes.c_longlong, _P],
+                          ctypes.c_int),
+    },
     "dedup_probe": {
         "bkw_dedup_probe": ([_P, _P, _P, ctypes.c_longlong, ctypes.c_uint,
                              ctypes.c_uint, ctypes.c_int, _P, _P],

@@ -14,7 +14,12 @@ turns raw bytes into chunk manifests (cut points + BLAKE3 fingerprints):
 ``manifest_many_classified`` adds the dedup hints: two passes (manifest,
 then ``dedup.classify_insert``) on the base class, and on
 :class:`GpuBackend` one pass that hands each batch's digests to the
-device dedup table mid-manifest.  Erasure coding is a later slice.
+device dedup table mid-manifest.
+
+``encode_shards`` / ``decode_shards`` are the Reed-Solomon product of the
+erasure stripes (``erasure/``): the numpy oracle on the base class (so
+:class:`CpuBackend` has them), the device product
+(:mod:`..erasure.rs_gpu`, kernel K6) on :class:`GpuBackend`.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
+
+from ..erasure import gf_cpu, rs_gpu
 from .blake3_cpu import blake3_many
 from .blake3_gpu import blake3_many_gpu
 from .cdc_cpu import chunk_stream as chunk_stream_cpu
@@ -48,6 +56,28 @@ class ChunkerBackend:
 
     def digest_many(self, datas: Sequence[bytes]) -> List[bytes]:
         raise NotImplementedError
+
+    # --- erasure coding: the numpy oracle by default; GpuBackend overrides
+    # with the device product, and both are bit-identical ----------------
+
+    def encode_shards(self, stripes, m: int):
+        """Reed-Solomon parity: (B, k, L) data shards -> (B, m, L)."""
+        stripes = np.asarray(stripes, dtype=np.uint8)
+        b, k, ln = stripes.shape
+        if m == 0 or b == 0:
+            return np.zeros((b, m, ln), dtype=np.uint8)
+        parity_rows = gf_cpu.generator_matrix(k, m)[k:]
+        return np.stack([gf_cpu.gf_matmul(parity_rows, s) for s in stripes])
+
+    def decode_shards(self, stripes, k: int, m: int, present):
+        """Recover data shards from survivors: ``stripes`` is (B, k, L)
+        with rows ordered by the sorted ``present`` indices."""
+        stripes = np.asarray(stripes, dtype=np.uint8)
+        if stripes.shape[0] == 0:
+            return stripes
+        cols = sorted(set(int(i) for i in present))
+        rec = gf_cpu.decode_matrix(k, m, cols)[:, cols]
+        return np.stack([gf_cpu.gf_matmul(rec, s) for s in stripes])
 
     def manifest_many(self, streams: Sequence[bytes]) -> List[List[ChunkRef]]:
         """Chunk + fingerprint a batch of streams."""
@@ -156,6 +186,13 @@ class GpuBackend(ChunkerBackend):
 
     def digest_many(self, datas):
         return blake3_many_gpu(datas, device=self.device)
+
+    def encode_shards(self, stripes, m):
+        return rs_gpu.encode_stripes(stripes, m, device=self.device)
+
+    def decode_shards(self, stripes, k, m, present):
+        return rs_gpu.decode_stripes(stripes, k, m, present,
+                                     device=self.device)
 
     def manifest_many(self, streams):
         return [_refs(chunks, digests)

@@ -21,7 +21,11 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    batch, a 2^21 -> 2^23 growth), every classification held against a
    host oracle and the first and last two batches, the probe and the
    growth against the plain version, whole tables bit-identical; each
-   insert call's time and the rounds its one kernel launch ran;
+   insert call's time and the rounds its one kernel launch ran; K6 the
+   GF(2^8) Reed-Solomon product: RS(4, 2) encode of 64 stripes of 4 x 4
+   MiB and decode of them from survivors {2, 3, 4, 5}, odd L and L = 1,
+   samples against ``gf_cpu``, and the engine's one call per 3 MiB
+   packfile (host time around the entry point beside the kernel's);
 3. the main path: ``GpuBackend().manifest_many`` over a seeded ~2.6 GiB
    corpus (one-row 128 MiB batches, multi-row batches, tiny files,
    repeated files and a long file of repeated blocks) with
@@ -53,7 +57,22 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    to the oracles, no divergence, the first tree's chunks all duplicates
    (some answered by the cold tier), the hot table under the budget; and
    a smaller history's front growing below the cap (K5's migration rounds
-   between CUDA events, held against the plain migration).
+   between CUDA events, held against the plain migration);
+6. the stripe phase (:func:`phase_stripe`), over the packfiles the pack
+   phase sealed in backup 1 (~840 MiB; the pack phase's manifest oracles
+   run beside it): what the engine does to their bytes without a network --
+   challenge tables, ``split_packfile(.., 4, 2, GpuBackend())``, a shard
+   to each of six synthetic peers through ``ReceivedFilesWriter``, audit
+   rounds (all pass, then a corrupted window detected and its peer
+   demoted), two peers dark and their shards rebuilt byte-identical,
+   the four survivors read back into ``RestoreFilesWriter`` and
+   ``assemble_tree``; every assembled packfile equal to the sealed one,
+   snapshot 1 restored from them byte-identical, every container
+   equal to the host oracle's; K2/K6 launches, ``digest_many`` calls and
+   their time, MiB/s of split, rebuild and assemble.
+
+The build phase also logs whether ``aiohttp``, ``websockets`` and
+``cryptography`` import here (the engine's network plane needs them).
 
 Prints a ``{"kernels": [...]}`` JSON line and, last, the device line.
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -100,6 +119,10 @@ B3_OPS_PER_BLOCK = 7 * 8 * 12 + 8
 # 5 per position the operations take ~0.04 ms for 128 Mi positions against
 # the bytes' ~0.24 ms (4 B read, 2 B written), so the bound is the bytes'
 LADDER_OPS_PER_POS = 1 + 2 + 2
+# per (output byte, input row) of the GF(2^8) product: one lookup in a
+# shared product table (an LDS, 2 at the int32 rate as above) and one XOR
+# into the accumulator
+GF_OPS_PER_LOOKUP = 2 + 1
 # the copy yardstick: one device-to-device copy_ of this many bytes
 COPY_BYTES = 640 * MiB
 SECTOR = 32  # bytes of one DRAM sector: the unit of a random access
@@ -141,6 +164,16 @@ def max_abs_err(torch, got, want) -> int:
     for g, w in zip(got, want):
         d = (g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF)
         err = max(err, int(d.abs().max()))
+    return err
+
+
+def u8_err(torch, got, want) -> int:
+    """``max_abs_err`` of uint8 tensors without widening them."""
+    err = 0
+    for g, w in zip(got, want):
+        if g.numel():
+            err = max(err, int((torch.maximum(g, w)
+                                - torch.minimum(g, w)).max()))
     return err
 
 
@@ -375,6 +408,106 @@ def phase_gear_ladder(torch, rng, card):
          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None},
     ]
+
+
+def phase_gf(torch, rng, card):
+    """K6, the GF(2^8) Reed-Solomon product, against its plain version on
+    the card at the stripe path's widths: RS(4, 2) encode of 64 stripes of
+    4 x 4 MiB (16 MiB packfiles) and decode of the same batch from
+    survivors {2, 3, 4, 5}; the engine's one call per 3 MiB packfile; odd
+    L and L = 1; samples held against ``gf_cpu``.  Returns the JSON row
+    (launches filled in by the stripe phase)."""
+    from backuwup_tpu_torch import defaults
+    from backuwup_tpu_torch.erasure import gf_cpu, rs_gpu
+
+    dev = torch.device("cuda")
+    k, m = defaults.RS_K, defaults.RS_M
+    b_n, ln = 64, defaults.PACKFILE_MAX_SIZE // k
+    x = torch.from_numpy(rng.integers(0, 256, (b_n, k, ln),
+                                      dtype=np.uint8)).to(dev)
+    enc = torch.from_numpy(gf_cpu.generator_matrix(k, m)[k:].copy()).to(dev)
+    present = [2, 3, 4, 5]
+    dec = torch.from_numpy(
+        gf_cpu.decode_matrix(k, m, present)[:, present].copy()).to(dev)
+    parity = rs_gpu.gf_matmul(enc, x)
+    surv = torch.cat([x[:, 2:], parity], dim=1)
+    data = rs_gpu.gf_matmul(dec, surv)
+    err = u8_err(torch, [parity, data],
+                 [rs_gpu.gf_matmul_plain(enc, x),
+                  rs_gpu.gf_matmul_plain(dec, surv)])
+    torch.cuda.synchronize()
+    rebuilt = torch.equal(data, x)
+    host_x = x[[0, b_n - 1]].cpu().numpy()
+    host_p = parity[[0, b_n - 1]].cpu().numpy()
+    oracle = all(np.array_equal(gf_cpu.encode_stripe(s, m), p)
+                 for s, p in zip(host_x, host_p))
+    log(f"K6 gf_matmul encode {b_n} x {k} x {ln} and decode from survivors "
+        f"{present}: bit-exact vs plain={err == 0}, decode gives the data "
+        f"back={rebuilt}, gf_cpu on stripes 0 and {b_n - 1}={oracle}")
+    if err or not rebuilt or not oracle:
+        raise AssertionError("gf_matmul kernel disagrees")
+    # odd L, L = 1 and the engine's shape through the numpy entry points
+    for shape in ((1, k, 786_433), (b_n, k, 1), (3, k, 4097)):
+        s_np = rng.integers(0, 256, shape, dtype=np.uint8)
+        p_np = rs_gpu.encode_stripes(s_np, m)
+        want = np.stack([gf_cpu.encode_stripe(s, m) for s in s_np])
+        full = np.concatenate([s_np, p_np], axis=1)
+        back = rs_gpu.decode_stripes(full[:, present], k, m, present)
+        s_d = torch.from_numpy(s_np).to(dev)
+        e = u8_err(torch, [rs_gpu.gf_matmul(enc, s_d)],
+                   [rs_gpu.gf_matmul_plain(enc, s_d)])
+        torch.cuda.synchronize()
+        ok = np.array_equal(p_np, want) and np.array_equal(back, s_np)
+        log(f"K6 gf_matmul B, k, L = {shape}: bit-exact vs plain={e == 0}, "
+            f"gf_cpu encode and decode={ok}")
+        if e or not ok:
+            raise AssertionError(f"gf_matmul kernel disagrees at {shape}")
+        err = max(err, e)
+
+    enc_ms = cuda_ms(torch, lambda: rs_gpu.gf_matmul(enc, x))
+    dec_ms = cuda_ms(torch, lambda: rs_gpu.gf_matmul(dec, surv))
+    enc_plain = cuda_ms(torch, lambda: rs_gpu.gf_matmul_plain(enc, x),
+                        reps=5, warm=1)
+    dec_plain = cuda_ms(torch, lambda: rs_gpu.gf_matmul_plain(dec, surv),
+                        reps=5, warm=1)
+    n_in = x.numel()
+    enc_bound, enc_by = bound_ms(n_in + b_n * m * ln,
+                                 b_n * m * k * ln * GF_OPS_PER_LOOKUP)
+    dec_bound, dec_by = bound_ms(2 * n_in, b_n * k * k * ln * GF_OPS_PER_LOOKUP)
+    log(f"K6 time, encode {n_in / MiB:.0f} MiB -> {b_n * m * ln / MiB:.0f} "
+        f"MiB: kernel {enc_ms:.4f} ms ({enc_bound / enc_ms:.1%} of bound), "
+        f"plain {enc_plain:.4f} ms, bound {enc_bound:.4f} ms ({enc_by}); "
+        f"decode {n_in / MiB:.0f} MiB -> {n_in / MiB:.0f} MiB: kernel "
+        f"{dec_ms:.4f} ms ({dec_bound / dec_ms:.1%} of bound), plain "
+        f"{dec_plain:.4f} ms, bound {dec_bound:.4f} ms ({dec_by}) [{card}]")
+    del parity, surv, data
+    # the engine's shape: one call per 3 MiB packfile, B = 1; the numpy
+    # entry point's host time (pinned staging, upload, launch, download)
+    # beside the kernel's own time
+    one = rng.integers(0, 256, (1, k, defaults.PACKFILE_TARGET_SIZE // k),
+                       dtype=np.uint8)
+    one_d = torch.from_numpy(one).to(dev)
+    one_ms = cuda_ms(torch, lambda: rs_gpu.gf_matmul(enc, one_d))
+    for _ in range(2):
+        rs_gpu.encode_stripes(one, m)
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        rs_gpu.encode_stripes(one, m)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    one_bound, _ = bound_ms(one.size * (k + m) // k, 0)
+    log(f"K6 per-packfile call (B=1, L={one.shape[2]}): host time around "
+        f"rs_gpu.encode_stripes {statistics.median(walls):.4f} ms (median "
+        f"of 7, spread {min(walls):.4f}-{max(walls):.4f}), of which the "
+        f"kernel {one_ms:.4f} ms (bound {one_bound:.4f} ms) [{card}]")
+    log("library_ms: null for gf_matmul -- no PyTorch call computes a "
+        "GF(2^8) product")
+    return {"name": "gf_matmul", "route": "cuda",
+            "source": "backuwup_tpu_torch/csrc/gf_matmul.cu",
+            "replaces": "backuwup_tpu/erasure/rs_tpu.py:28 (XLA program on "
+                        "the TPU, not a Pallas kernel)",
+            "max_abs_err": err, "ms": enc_ms, "plain_ms": enc_plain,
+            "bound_ms": enc_bound, "bound_by": enc_by, "library_ms": None}
 
 
 def probe_steps(alpha: float):
@@ -671,6 +804,21 @@ def log_sass(build_dir, libs) -> None:
                 counts[fn] += 1
         for fn, n in counts.items():
             log(f"sass {name}: {n} instructions in {fn}")
+
+
+def log_network_packages() -> None:
+    """One line: whether the packages a networked engine needs import
+    here, with their versions.  Fails on nothing."""
+    import importlib
+
+    found = []
+    for name in ("aiohttp", "websockets", "cryptography"):
+        try:
+            mod = importlib.import_module(name)
+            found.append(f"{name} {getattr(mod, '__version__', '?')}")
+        except Exception as e:  # a probe: any failure is the answer
+            found.append(f"{name} missing ({type(e).__name__})")
+    log("network packages: " + ", ".join(found))
 
 
 def zero_counts(counters) -> None:
@@ -1289,12 +1437,31 @@ def recency_shift(rng, front, index, a_chunks, spec, card):
     return fresh
 
 
-def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None):
+def packfile_ids(pack_dir: Path):
+    """Ids of the packfiles under ``pack_dir`` (``packfile_path`` layout)."""
+    out = set()
+    for p in Path(pack_dir).glob("*/*"):
+        try:
+            pid = bytes.fromhex(p.name)
+        except ValueError:
+            continue
+        if len(pid) == 12 and p.parent.name == p.name[:2] and p.is_file():
+            out.add(pid)
+    return out
+
+
+def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None,
+               after=None):
+
     """The backup data plane at a real user's size: directory -> chunks ->
     fingerprints -> tiered dedup -> sealed packfiles + snapshot root ->
-    restore, through the port's entry points; returns the migration row."""
+    restore, through the port's entry points; returns the migration row.
+    ``after(ctx)``, if given, runs on the sealed packfiles before they are
+    deleted: ``ctx`` holds the keys, the authority, the pack directory,
+    and backup 1's packfile ids, snapshot root and source tree."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from backuwup_tpu_torch import defaults
     from backuwup_tpu_torch.crypto import KeyManager
@@ -1374,7 +1541,7 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None):
         log(f"pack: tree A {size_a / MiB:.1f} MiB written in "
             f"{time.perf_counter() - t0:.1f} s")
         host_idx = BlobIndex(keys, tmp / "host" / "index")
-        results = []
+        results, sealed = [], []  # sealed: each backup's new packfiles
         for label, size in (("backup 1 (A)", size_a), ("backup 2 (A+B)", 0)):
             if results:
                 # between the backups: the recency shift, then tree B
@@ -1386,6 +1553,7 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None):
                     f"{time.perf_counter() - t0:.1f} s")
             hints.clear()
             lost.clear()
+            sealed_before = packfile_ids(tmp / "repo" / "pack")
             host_before = metric("bkw_tier_probes_total", path="host")
             demoted_before = metric("bkw_tier_demotions_total")
             zero_counts(counters)
@@ -1439,6 +1607,8 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None):
             resolve = resolver(keys, index, tmp / "repo" / "pack")
             files, dirs = file_manifests(resolve, root)
             results.append((root, files, dirs, stats, added, cold_hits))
+            sealed.append(sorted(packfile_ids(tmp / "repo" / "pack")
+                                 - sealed_before))
             if len(results) == 1:
                 a_chunks = {h for hs in files.values() for h in hs}
                 n_a_chunks = sum(map(len, files.values()))
@@ -1485,19 +1655,371 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None):
             shutil.rmtree(dest)
         rels = sorted(files2)
         streams = [(src / rel).read_bytes() for rel in rels]
+        # with ``after`` to run, the oracles run beside it, on all but three
+        # cores (the stripe phase's host thread and its own two oracle
+        # workers keep those): they need only the streams
         workers = min(8, os.cpu_count() or 1)
+        if after is not None:
+            workers = max(1, workers - 3)
         t0 = time.perf_counter()
-        want = oracle_manifests(streams, backend.params, workers)
+        with ThreadPoolExecutor(1) as bg:
+            pending = bg.submit(oracle_manifests, streams, backend.params,
+                                workers)
+            if after is not None:
+                after({"tmp": tmp, "keys": keys, "index": index,
+                       "pack_dir": tmp / "repo" / "pack",
+                       "packfiles": sealed[0], "root": root1,
+                       "tree": src / "A"})
+            want = pending.result()
         for rel, w in zip(rels, want):
             if [h for _o, _n, h in w] != files2[rel]:
                 raise AssertionError(f"{rel}: manifest differs from the oracle")
         log(f"pack: oracle parity: {len(rels)} files, "
             f"{sum(map(len, streams)) / MiB:.1f} MiB, every manifest of "
-            f"backup 2 equal to cdc_cpu + blake3_cpu (oracles in "
-            f"{time.perf_counter() - t0:.1f} s on {workers} processes)")
+            f"backup 2 equal to cdc_cpu + blake3_cpu (oracles on {workers} "
+            f"processes, done {time.perf_counter() - t0:.1f} s after they "
+            f"started{' beside the stripe phase' if after else ''})")
         return migrate_row
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --- 6. the stripe phase: sealed packfiles as erasure stripes on six peers --
+
+
+def _oracle_containers(path):
+    """SHA-256 of each shard container of the packfile at ``path`` as the
+    host oracle splits it (``CpuBackend``: numpy GF(2^8), ``blake3_cpu``)."""
+    import hashlib
+
+    from backuwup_tpu_torch import defaults
+    from backuwup_tpu_torch.erasure import stripe
+    from backuwup_tpu_torch.ops.backend import CpuBackend
+
+    return [hashlib.sha256(c).digest() for c in stripe.split_packfile(
+        Path(path).read_bytes(), defaults.RS_K, defaults.RS_M, CpuBackend())]
+
+
+def oracle_containers(paths, workers: int):
+    """:func:`_oracle_containers` of each path, on ``workers`` spawned
+    processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(_oracle_containers, paths))
+
+
+def phase_stripe(torch, rng, card, counters, ctx, device=None):
+    """What the engine does to the bytes of every sealed packfile after
+    the pack phase (``engine.py`` send, audit, repair and restore paths),
+    through the port's entry points and without a network:
+
+    1. a challenge table of the packfile, ``split_packfile(data, 4, 2,
+       GpuBackend())``, then one table per shard container;
+    2. shard i to synthetic peer i (six peers, each its own ``Store`` and
+       obfuscation key) through ``ReceivedFilesWriter.sink``; the owner
+       records each placement with its shard index;
+    3. one audit round per peer (``select_challenges`` ->
+       ``compute_proofs`` -> ``check_proofs`` -> the ledger): all pass;
+    4. one window of one peer's next challenged shard corrupted: the next
+       round fails it, the ledger demotes it out of
+       ``find_peers_with_storage``, the other peers pass;
+    5. that peer and one more go dark, their shards deleted;
+       ``rebuild_shards`` regenerates both lost shards of every stripe
+       from the other four, byte for byte;
+    6. the surviving four shards of every stripe read back (de-obfuscated)
+       into ``RestoreFilesWriter``, then ``assemble_tree``;
+    7. every assembled packfile equal to the sealed one, and
+       ``DirUnpacker`` over the assembled packs restoring the pack phase's
+       snapshots byte-identical to their trees.
+
+    Every container is held equal to the host oracle's (``CpuBackend``, in
+    worker processes).  The phase takes the packfiles of the pack phase's
+    backup 1 (~840 MiB), which restore snapshot 1 alone: over both
+    backups' it took 420.6 s of the script's 1200 s on an NVIDIA H100
+    80GB HBM3 at 700.00 W, ~4,500 ``digest_many`` calls at ~81 ms each
+    (PERF.md §4).  Returns the K2/K6 launches of the phase."""
+    import asyncio
+    import hashlib
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from backuwup_tpu_torch import defaults, wire
+    from backuwup_tpu_torch.audit import (build_challenge_table,
+                                          check_proofs, compute_proofs,
+                                          record_fail, record_pass,
+                                          select_challenges)
+    from backuwup_tpu_torch.erasure import rs_gpu
+    from backuwup_tpu_torch.erasure import stripe as rs_stripe
+    from backuwup_tpu_torch.net.p2p import (ReceivedFilesWriter,
+                                            RestoreFilesWriter, obfuscate)
+    from backuwup_tpu_torch.ops.backend import GpuBackend
+    from backuwup_tpu_torch.snapshot.blob_index import ChallengeTable
+    from backuwup_tpu_torch.snapshot.packfile import packfile_path
+    from backuwup_tpu_torch.snapshot.unpacker import DirUnpacker
+    from backuwup_tpu_torch.store import Store
+    from backuwup_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    k, m = defaults.RS_K, defaults.RS_M
+    tmp, keys, pack_dir = ctx["tmp"] / "stripe", ctx["keys"], ctx["pack_dir"]
+    packs = [(pid, packfile_path(pack_dir, pid)) for pid in ctx["packfiles"]]
+    total = sum(p.stat().st_size for _pid, p in packs)
+    sizes = [p.stat().st_size for _pid, p in packs]
+    log(f"stripe: the {len(packs)} packfiles of backup 1, "
+        f"{total / MiB:.1f} MiB (sizes "
+        f"{min(sizes)}-{max(sizes)} B), RS({k}, {m}) over {k + m} peers")
+
+    gpu = GpuBackend(device=device)
+    calls = []  # host seconds of each digest_many call
+    digest_many = gpu.digest_many
+
+    def timed_digest_many(datas):
+        t0 = time.perf_counter()
+        out = digest_many(datas)
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    gpu.digest_many = timed_digest_many
+    k6_events = []  # CUDA events around each K6 launch
+    kernel = rs_gpu.gf_matmul
+
+    def timed_gf_matmul(mat, stripes):
+        if not cuda:
+            return kernel(mat, stripes)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = kernel(mat, stripes)
+        b.record()
+        k6_events.append((a, b))
+        return out
+
+    owner_id = b"\x0b" * 32
+    owner = Store(tmp / "owner" / "cfg", data_base=tmp / "owner" / "data")
+    tables = ChallengeTable(keys, owner.challenge_dir())
+    grant = 2 * total + (1 << 30)
+    peers = []  # (peer id, its store, its obfuscation key, its writer)
+    for i in range(k + m):
+        peer_id = bytes([0xA0 + i]) * 32
+        st = Store(tmp / f"peer{i}" / "cfg",
+                   data_base=tmp / f"peer{i}" / "data")
+        key = rng.bytes(4)
+        st.set_obfuscation_key(key)
+        st.add_peer_negotiated(owner_id, grant)
+        owner.add_peer_negotiated(peer_id, grant)
+        peers.append((peer_id, st, key, ReceivedFilesWriter(st, owner_id)))
+    loop = asyncio.new_event_loop()
+
+    def read_back(i, sid):
+        """What holder i's transport serves: its stored file,
+        de-obfuscated."""
+        _pid, st, key, _w = peers[i]
+        path = st.received_dir(owner_id) / "shard" / sid.hex()
+        return obfuscate(path.read_bytes(), key)
+
+    async def send_stripe(pid, containers):
+        await asyncio.gather(*(
+            w.sink(wire.FileInfoKind.SHARD, rs_stripe.shard_id(pid, i), blob)
+            for i, ((_p, _s, _k, w), blob) in enumerate(
+                zip(peers, containers))))
+
+    def audit_round(i):
+        peer_id, st, _key, _w = peers[i]
+        challenges, expected = select_challenges(owner, tables, peer_id)
+        proofs = compute_proofs(st, gpu, owner_id, challenges)
+        return challenges, check_proofs(challenges, expected, proofs)
+
+    # the host oracle splits the same packfiles from disk on two worker
+    # processes beside the phase
+    t_oracle = time.perf_counter()
+    background = ThreadPoolExecutor(1)
+    oracle = background.submit(oracle_containers,
+                               [str(p) for _pid, p in packs], 2)
+    zero_counts(counters)
+    # the wrapper counts its launches on the module's ``gf_matmul``, which
+    # the timing hook stands in for during the phase; the count goes back
+    # to the wrapper after it
+    timed_gf_matmul.launches = 0
+    rs_gpu.gf_matmul = timed_gf_matmul
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        t_phase = time.perf_counter()
+        # 1-2. tables, split, shard tables, one shard to each peer
+        t_split = t_tables = t_sink = 0.0
+        sha = {}
+        for pid, path in packs:
+            data = path.read_bytes()
+            t0 = time.perf_counter()
+            tables.save(pid, build_challenge_table(gpu, data))
+            t1 = time.perf_counter()
+            containers = rs_stripe.split_packfile(data, k, m, gpu)
+            t2 = time.perf_counter()
+            for i, blob in enumerate(containers):
+                tables.save(rs_stripe.shard_id(pid, i),
+                            build_challenge_table(gpu, blob))
+            t3 = time.perf_counter()
+            loop.run_until_complete(send_stripe(pid, containers))
+            for i, blob in enumerate(containers):
+                owner.add_peer_transmitted(peers[i][0], len(blob))
+                owner.record_placement(pid, peers[i][0], len(blob),
+                                       shard_index=i)
+            sha[pid] = [hashlib.sha256(b).digest() for b in containers]
+            t_tables += (t1 - t0) + (t3 - t2)
+            t_split += t2 - t1
+            t_sink += time.perf_counter() - t3
+        n_split_calls = len(calls)
+        log(f"stripe: split {len(packs)} packfiles ({total / MiB:.1f} MiB) "
+            f"in {t_split:.3f} s = {total / MiB / t_split:.1f} MiB/s; "
+            f"{7 * len(packs)} challenge tables in {t_tables:.3f} s; "
+            f"{6 * len(packs)} shard containers through "
+            f"ReceivedFilesWriter.sink in {t_sink:.3f} s [{card}]")
+
+        # 3. one audit round per peer: all pass
+        for i, (peer_id, _st, _k, _w) in enumerate(peers):
+            challenges, res = audit_round(i)
+            if not res.passed or res.checked != \
+                    defaults.AUDIT_SAMPLES_PER_ROUND:
+                raise AssertionError(f"peer {i} failed its audit: "
+                                     f"{res.detail}")
+            record_pass(owner, peer_id)
+        log(f"stripe: audit round 1: {len(peers)} peers, "
+            f"{defaults.AUDIT_SAMPLES_PER_ROUND} challenges each, all pass")
+
+        # 4. corrupt one window of peer 1's next challenged shard
+        bad, dark = 1, (1, 4)
+        bad_id, bad_st, _key, _w = peers[bad]
+        first_pid, _size, idx = owner.shard_placements_for_peer(bad_id)[0]
+        sid = first_pid + bytes([idx])
+        entry = tables.load(sid)[owner.get_audit_cursor(sid)]
+        target = bad_st.received_dir(owner_id) / "shard" / sid.hex()
+        raw = bytearray(target.read_bytes())
+        raw[entry.offset + entry.length // 2] ^= 0xFF
+        target.write_bytes(bytes(raw))
+        for i, (peer_id, _st, _k, _w) in enumerate(peers):
+            challenges, res = audit_round(i)
+            if i == bad:
+                if res.passed or "digest mismatch" not in res.detail:
+                    raise AssertionError("the corrupted window passed")
+                state = record_fail(owner, peer_id, res.detail)
+            elif not res.passed:
+                raise AssertionError(f"peer {i} failed round 2: {res.detail}")
+            else:
+                record_pass(owner, peer_id)
+        listed = [p.pubkey for p in owner.find_peers_with_storage()]
+        if not state.demoted or bad_id in listed or len(listed) != k + m - 1:
+            raise AssertionError("the failing peer was not demoted")
+        log(f"stripe: audit round 2: peer {bad}'s corrupted window detected "
+            f"({state.last_result[:60]}...), demoted, out of "
+            f"find_peers_with_storage ({len(listed)} peers left); the "
+            f"others pass")
+
+        # 5. peers 1 and 4 go dark: rebuild their shards from the others
+        for i in dark:
+            shutil.rmtree(peers[i][1].data_base / "received_packfiles")
+        alive = [i for i in range(k + m) if i not in dark]
+        t_rebuild = 0.0
+        calls_before = len(calls)
+        for pid, _path in packs:
+            blobs = [read_back(i, rs_stripe.shard_id(pid, i)) for i in alive]
+            t0 = time.perf_counter()
+            rebuilt = rs_stripe.rebuild_shards(blobs, list(dark), gpu)
+            t_rebuild += time.perf_counter() - t0
+            for i in dark:
+                if hashlib.sha256(rebuilt[i]).digest() != sha[pid][i]:
+                    raise AssertionError(f"rebuilt shard {i} of "
+                                         f"{pid.hex()} differs")
+        n_rebuild_calls = len(calls) - calls_before
+        log(f"stripe: rebuild of shards {list(dark)} of {len(packs)} "
+            f"stripes from shards {alive}: {t_rebuild:.3f} s = "
+            f"{total / MiB / t_rebuild:.1f} MiB/s of packfile, every rebuilt "
+            f"container byte-identical to the original [{card}]")
+
+        # 6. restore: the survivors read back into RestoreFilesWriter
+        restore = tmp / "restore"
+        writer = RestoreFilesWriter(owner, base=restore)
+        t0 = time.perf_counter()
+        for i in alive:
+            _p, st, _k, _w = peers[i]
+            for kind, fid, data in ReceivedFilesWriter(
+                    st, owner_id).iter_stored():
+                loop.run_until_complete(writer.sink(kind, fid, data))
+        t_pull = time.perf_counter() - t0
+        calls_before = len(calls)
+        t0 = time.perf_counter()
+        done, failed = rs_stripe.assemble_tree(restore / "shard",
+                                               restore / "pack", gpu)
+        t_assemble = time.perf_counter() - t0
+        n_assemble_calls = len(calls) - calls_before
+        if failed or sorted(done) != sorted(pid for pid, _p in packs):
+            raise AssertionError(f"assemble_tree failed: {failed[:3]}")
+        log(f"stripe: restore: {writer.files} shard files read back from "
+            f"{len(alive)} peers in {t_pull:.3f} s; assemble_tree "
+            f"{len(done)} packfiles in {t_assemble:.3f} s = "
+            f"{total / MiB / t_assemble:.1f} MiB/s [{card}]")
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t_phase
+    finally:
+        rs_gpu.gf_matmul = kernel
+        kernel.launches += timed_gf_matmul.launches
+    launches = read_counts(counters)
+    k6_ms = [a.elapsed_time(b) for a, b in k6_events]
+
+    # 7. the assembled packfiles and the trees they restore
+    for pid, path in packs:
+        if packfile_path(restore / "pack", pid).read_bytes() != \
+                path.read_bytes():
+            raise AssertionError(f"assembled {pid.hex()} differs")
+    root, tree = ctx["root"], ctx["tree"]
+    dest = tmp / "restored1"
+    t0 = time.perf_counter()
+    DirUnpacker(resolver(keys, ctx["index"], restore / "pack")).unpack(
+        root, dest)
+    n = same_tree(dest / tree.name, tree)
+    if sorted(p.name for p in dest.iterdir()) != [tree.name]:
+        raise AssertionError("the stripe restore holds more than its tree")
+    log(f"stripe: snapshot 1 ({root.hex()[:16]}...) restored from the "
+        f"assembled packfiles, {n / MiB:.1f} MiB byte-identical to its tree, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(dest)
+
+    # every container equal to the host oracle's
+    want = oracle.result()
+    background.shutdown()
+    for (pid, _p), w in zip(packs, want):
+        if sha[pid] != w:
+            raise AssertionError(f"containers of {pid.hex()} differ from "
+                                 "the host oracle's")
+    log(f"stripe: oracle parity: {6 * len(packs)} shard containers equal "
+        f"to CpuBackend's (numpy GF(2^8) + blake3_cpu on 2 processes beside "
+        f"the phase, done {time.perf_counter() - t_oracle:.1f} s after they "
+        f"started)")
+
+    med = statistics.median(calls) * 1e3
+    log(f"stripe: phase wall {wall:.3f} s for {total / MiB:.1f} MiB; "
+        f"launches {launches}; digest_many {len(calls)} calls "
+        f"({n_split_calls} in split + tables, {n_rebuild_calls} in rebuild,"
+        f" {n_assemble_calls} in assemble, the rest in audits), "
+        f"{sum(calls):.3f} s in all, per call median {med:.3f} ms, mean "
+        f"{sum(calls) / len(calls) * 1e3:.3f} ms, max {max(calls) * 1e3:.3f}"
+        f" ms; K6 {len(k6_ms)} launches, "
+        + (f"{sum(k6_ms):.3f} ms of device time in all (median "
+           f"{statistics.median(k6_ms):.4f} ms per launch)" if k6_ms
+           else "device time not measured (not on the card)")
+        + f" [{card}]")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} not launched on the stripe "
+                                 "path")
+    loop.close()
+    for _pid, st, _k, _w in peers:
+        st.close()
+    owner.close()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1515,10 +2037,16 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(HERE))
     from backuwup_tpu_torch import kernels
+    from backuwup_tpu_torch.erasure import rs_gpu
     from backuwup_tpu_torch.ops import blake3_gpu, dedup_index, scan_fused
     from backuwup_tpu_torch.ops.backend import GpuBackend
     from backuwup_tpu_torch.ops.gear import CDCParams
     from backuwup_tpu_torch.snapshot.device_dedup import MeshDedupIndex
+
+    t_start = time.perf_counter()
+
+    def mark(label):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {label} done")
 
     # 1. build + device
     t0 = time.perf_counter()
@@ -1529,7 +2057,8 @@ def main(argv=None) -> int:
             if any(k in line for k in ("registers", "spill", "stack frame")):
                 log(f"ptxas {name}: {line.strip()}")
     log_sass(kernels.build_dir(), ("scan_candidates", "dedup_probe",
-                                   "gear_values", "ladder_candidates"))
+                                   "gear_values", "ladder_candidates",
+                                   "gf_matmul"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -1537,18 +2066,25 @@ def main(argv=None) -> int:
     print(card, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    log_network_packages()
 
     rng = np.random.default_rng(args.seed)
     # 2. kernels vs plain at full width
     rows = phase_kernels(torch, rng, card)
+    mark("K1/K2 phase")
     torch.cuda.empty_cache()
 
     # the phases added after the first slice draw from their own stream,
     # so the corpus below stays the one earlier runs measured
     rng_k = np.random.default_rng([args.seed, 2])
     rows += phase_gear_ladder(torch, rng_k, card)
+    mark("K3/K4 phase")
     torch.cuda.empty_cache()
     dedup_row = phase_dedup(torch, rng_k, card)
+    mark("K5 phase")
+    torch.cuda.empty_cache()
+    gf_row = phase_gf(torch, np.random.default_rng([args.seed, 4]), card)
+    mark("K6 phase")
     torch.cuda.empty_cache()
 
     # 3. the main path at real size, then the classified main path
@@ -1612,6 +2148,7 @@ def main(argv=None) -> int:
         if counts["dedup_probe"] != calls:
             raise AssertionError("an insert call is not one kernel launch")
 
+    mark("main path")
     # 4. oracle parity on a >= 16 MiB subset covering every route, and on
     # the main path's largest shapes: a one-row 128 MiB batch (pool tiers
     # up to the 3072-leaf span) and the 304 MiB stream over 128 MiB segments
@@ -1640,12 +2177,29 @@ def main(argv=None) -> int:
     del corpus, main_out, part, got, streams, want, long_data
     torch.cuda.empty_cache()
 
+    mark("oracle parity")
     # 5. the pack phase: the backup data plane from a directory to sealed
-    # packfiles and back, at a real user's size
+    # packfiles and back, at a real user's size; 6. the stripe phase over
+    # the packfiles it sealed
+    stripe_counters = {"blake3_leaf": (blake3_gpu.leaf_scan,),
+                       "gf_matmul": (rs_gpu.gf_matmul,)}
+    stripe_launches, stripe_secs = {}, []
+
+    def stripe(ctx):
+        t1 = time.perf_counter()
+        stripe_launches.update(phase_stripe(
+            torch, np.random.default_rng([args.seed, 5]), card,
+            stripe_counters, ctx))
+        stripe_secs.append(time.perf_counter() - t1)
+
     t0 = time.perf_counter()
     rows.append(phase_pack(torch, np.random.default_rng([args.seed, 3]),
-                           card, counters))
-    log(f"pack phase: {time.perf_counter() - t0:.1f} s")
+                           card, counters, after=stripe))
+    log(f"pack phase with the stripe phase: {time.perf_counter() - t0:.1f} s"
+        f" (stripe phase {stripe_secs[0]:.1f} s)")
+    gf_row["launches"] = stripe_launches["gf_matmul"]
+    rows.append(gf_row)
+    mark("pack and stripe phases")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from backuwup_tpu_torch.erasure import gf_cpu, rs_gpu
 from backuwup_tpu_torch.ops import (
     blake3_gpu,
     dedup_index,
@@ -305,3 +306,70 @@ def test_dedup_insert_rounds_match_plain(racing):
     assert int((lost == dedup_index.LOST_RACE).sum()) \
         == max(racing + 1 - len(races), 0)
     assert torch.equal(idx.claim, torch.full_like(idx.claim, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln", [4096, 4097, 1, 33])
+def test_gf_matmul_kernel_matches_plain(ln):
+    """K6 on RS(4, 2) encode and decode at 64 stripes of 4 rows (4096 as
+    the reference's accelerator case, odd L, L = 1 and a two-unit L),
+    against the plain version on the card and the numpy oracle."""
+    _needs_card()
+    rng = np.random.default_rng(60 + ln)
+    k, m = 4, 2
+    stripes = rng.integers(0, 256, (64, k, ln), dtype=np.uint8)
+    before = rs_gpu.gf_matmul.launches
+    parity = rs_gpu.encode_stripes(stripes, m)
+    assert rs_gpu.gf_matmul.launches == before + 1
+    expect = np.stack([gf_cpu.encode_stripe(s, m) for s in stripes])
+    assert np.array_equal(parity, expect)
+    present = list(range(m, k + m))
+    full = np.concatenate([stripes, parity], axis=1)
+    dec = rs_gpu.decode_stripes(full[:, present, :], k, m, present)
+    assert np.array_equal(dec, stripes)
+    mat = torch.from_numpy(gf_cpu.generator_matrix(k, m)[k:].copy()).cuda()
+    x = torch.from_numpy(stripes).cuda()
+    got = rs_gpu.gf_matmul(mat, x)
+    want = rs_gpu.gf_matmul_plain(mat, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,nj,ln", [(9, 3, 100), (17, 16, 35),
+                                     (128, 128, 20), (255, 1, 7)])
+def test_gf_matmul_kernel_other_geometries(r, nj, ln):
+    """More output rows than one register tile, the full 64 KiB table
+    (r * J > 256, the shared-memory opt-in) and a tall matrix; inputs
+    offset by 1-3 bytes from an aligned allocation."""
+    _needs_card()
+    rng = np.random.default_rng(r * 7 + nj)
+    mat = rng.integers(0, 256, (r, nj), dtype=np.uint8)
+    stripes = rng.integers(0, 256, (3, nj, ln), dtype=np.uint8)
+    want = np.stack([gf_cpu.gf_matmul(mat, s) for s in stripes])
+    assert np.array_equal(rs_gpu.gf_matmul_stripes(mat, stripes), want)
+    for shift in (1, 2, 3):
+        buf = torch.zeros(stripes.size + shift, dtype=torch.uint8,
+                          device="cuda")
+        buf[shift:] = torch.from_numpy(stripes.reshape(-1)).cuda()
+        x = buf[shift:].view(stripes.shape)
+        got = rs_gpu.gf_matmul(torch.from_numpy(mat).cuda(), x)
+        torch.cuda.synchronize()
+        assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_gpu_backend_erasure_launches_k6():
+    _needs_card()
+    from backuwup_tpu_torch.erasure import stripe
+
+    data = np.random.default_rng(61).bytes(3 * 1024 * 1024 + 5)
+    gpu, cpu = GpuBackend(), CpuBackend()
+    before = rs_gpu.gf_matmul.launches
+    containers = stripe.split_packfile(data, 4, 2, gpu)
+    assert containers == stripe.split_packfile(data, 4, 2, cpu)
+    assert stripe.assemble_packfile(containers[2:], gpu) == data
+    rebuilt = stripe.rebuild_shards(containers[1:5], [0, 5], gpu)
+    assert rebuilt == {0: containers[0], 5: containers[5]}
+    # split 1, assemble 1, rebuild: decode + encode
+    assert rs_gpu.gf_matmul.launches == before + 4
