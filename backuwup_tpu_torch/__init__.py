@@ -2,8 +2,10 @@
 
 Content-defined chunking, BLAKE3 fingerprinting and dedup classification
 of backup streams on an NVIDIA H100, the packer and packfiles around
-them, and the Reed-Solomon stripes, audits and shard storage each sealed
-packfile goes through, bit-identical to the JAX package
+them, the Reed-Solomon stripes, audits and shard storage each sealed
+packfile goes through, and the network plane the stripes travel over
+(coordination server, client control plane, signed P2P transport),
+bit-identical to the JAX package
 (``backuwup_tpu``), which stays beside it as the reference.  The port
 imports ``torch``, never ``jax``, and nothing of ``backuwup_tpu``.  Entry
 points run on CUDA unless the caller passes ``device="cpu"``, which

@@ -118,3 +118,136 @@ AUDIT_RETRY_BASE_S = 60.0  # first retry delay after a miss/failure
 AUDIT_BACKOFF_CAP_S = 24 * 3600.0  # exponential-backoff ceiling
 AUDIT_DEMOTE_MISSES = 3  # consecutive offline windows before demotion
 AUDIT_DEMOTE_FAILURES = 1  # confirmed bad/missing proofs before demotion
+
+# --- send pipeline and timeouts (backuwup_tpu/defaults.py:39-42, :59, :69) --
+PACKFILE_SEND_TIMEOUT_S = 20.0
+ACK_TIMEOUT_S = 5.0
+RESTORE_REQUEST_THROTTLE_S = 60.0
+# grace given to in-flight handlers when a coordination node stops
+SERVER_SHUTDOWN_GRACE_S = 2.0
+# a peer unseen for this long is treated as lost (:70)
+PEER_DARK_DEADLINE_S = 3 * 24 * 3600.0
+
+# --- concurrent transfer plane (backuwup_tpu/defaults.py:85, :91) -----------
+# uploads admitted concurrently across all peers, and the in-flight payload
+# RAM cap (a single larger transfer is still admitted when the plane is empty)
+TRANSFER_MAX_INFLIGHT = 8
+TRANSFER_INFLIGHT_BYTE_CAP = 64 * MiB
+
+# --- resumable WAN transfer plane (backuwup_tpu/defaults.py:117-133) ---------
+# payloads larger than this go out as FILE_PART frames with per-part acks
+# after a RESUME_QUERY; 0 disables chunking
+TRANSFER_CHUNK_BYTES = 1 * MiB
+TRANSFER_RESUME_ATTEMPTS = 2
+TRANSFER_RESUME_ENABLED = True
+# adaptive per-transfer deadline: ACK_TIMEOUT_S + size / floor, floor the
+# larger of the minimum link rate and the peer's EWMA derated by the safety
+# fraction, capped
+TRANSFER_DEADLINE_SAFETY = 0.25
+TRANSFER_DEADLINE_CAP_S = 600.0
+
+# --- restore data plane (backuwup_tpu/defaults.py:154-157) ------------------
+# serve-side throttle of RESTORE_FETCH sessions (off by default) and the
+# bound on items one FETCH_REQUEST may name
+RESTORE_FETCH_MIN_INTERVAL_S = 0.0
+RESTORE_FETCH_MAX_WANTS = 4096
+
+# --- placement demotion (backuwup_tpu/defaults.py:173-175) -------------------
+PLACEMENT_DEMOTE_SUCCESS = 0.25
+PLACEMENT_RECOVER_SUCCESS = 0.6
+PLACEMENT_DEMOTE_MIN_SAMPLES = 4
+
+# --- protocol limits (backuwup_tpu/defaults.py:179-180) ----------------------
+MAX_BACKUP_STORAGE_REQUEST_SIZE = 16 * 1024 * MiB
+BACKUP_REQUEST_EXPIRY_S = 300.0
+
+# --- audit serving and reporting (backuwup_tpu/defaults.py:197, :203-206) ----
+AUDIT_MAX_CHALLENGES_PER_MSG = 256  # prover-side cap on one CHALLENGE body
+AUDIT_PROOF_TIMEOUT_S = 15.0  # verifier wait for the PROOF body
+AUDIT_SERVE_MIN_INTERVAL_S = 5.0  # prover-side per-peer rate limit
+AUDIT_SERVER_BLOCK_FAILURES = 2  # distinct failing verifiers to block matches
+AUDIT_REPORT_WINDOW_S = 24 * 3600.0  # server aggregation window
+
+# --- peer stats (backuwup_tpu/defaults.py:217) -------------------------------
+# EWMA weight of each new TransferResult in the per-peer estimators
+PEER_STATS_ALPHA = 0.2
+
+# --- live SLO plane (backuwup_tpu/defaults.py:240-291) -----------------------
+# multi-window burn alerts and the objective catalog that obs/slo.py reads
+SLO_WINDOWS = ((300.0, 3600.0), (21600.0, 259200.0))
+SLO_FAST_BURN = 14.4
+SLO_SLOW_BURN = 6.0
+SLO_CATALOG = (
+    {"id": "durability", "kind": "counter_rate",
+     "family": "bkw_durability_violation_seconds_total", "labels": {},
+     "budget": 0.001,
+     "description": "fraction of time any durability invariant is"
+                    " violated stays ~0"},
+    {"id": "transfer_stalls", "kind": "ratio",
+     "family": "bkw_transfer_stalls_total", "labels": {},
+     "total_family": "bkw_transfers_total", "budget": 0.02,
+     "description": "adaptive-deadline stall aborts per completed"
+                    " transfer"},
+    {"id": "backup_p99", "kind": "quantile",
+     "family": "bkw_span_seconds", "labels": {"name": "engine.backup"},
+     "target": 120.0, "budget": 0.01,
+     "description": "p99 end-to-end backup wall seconds"},
+    {"id": "restore_p99", "kind": "quantile",
+     "family": "bkw_span_seconds", "labels": {"name": "engine.restore"},
+     "target": 120.0, "budget": 0.01,
+     "description": "p99 end-to-end restore wall seconds"},
+    {"id": "matchmaking_p99", "kind": "quantile",
+     "family": "bkw_server_request_seconds",
+     "labels": {"route": "/backups/request"},
+     "target": 5.0, "budget": 0.01,
+     "description": "p99 matchmaking request latency at the"
+                    " coordination server"},
+    {"id": "backup_overlap", "kind": "gauge_below",
+     "family": "bkw_backup_overlap_efficiency", "labels": {},
+     "target": 0.5, "budget": 0.25,
+     "description": "streaming-dataflow overlap efficiency holds above"
+                    " the floor for most of the window"},
+    {"id": "repl_promote_p99", "kind": "quantile",
+     "family": "bkw_repl_promote_seconds", "labels": {},
+     "target": 30.0, "budget": 0.05,
+     "description": "p99 successor promotion seconds (epoch commit +"
+                    " log-tail replay)"},
+)
+
+# --- durability invariant monitor (backuwup_tpu/defaults.py:297, :301) ------
+DURABILITY_SWEEP_INTERVAL_S = 5.0
+DURABILITY_AUDIT_MAX_AGE_S = 4 * AUDIT_INTERVAL_S
+
+# --- holder-side reclaim (backuwup_tpu/defaults.py:326-330) -----------------
+RECLAIM_MIN_INTERVAL_S = 5.0
+RECLAIM_MAX_ITEMS = 4096
+
+# --- scale-out coordination plane (backuwup_tpu/defaults.py:339, :343) -------
+# in-memory matchmaking shards keyed by pubkey, and the write-behind store's
+# cap on operations drained into one group commit
+MATCHMAKING_SHARDS = 8
+SERVER_STORE_MAX_BATCH = 256
+
+# --- federated coordination plane (backuwup_tpu/defaults.py:351-374) ---------
+FEDERATION_RING_VNODES = 64  # virtual nodes per node on the hash ring
+SERVER_STORE_PARTITIONS = 4  # store partitions when the caller pins none
+FEDERATION_RPC_TIMEOUT_S = 2.0
+FEDERATION_PEER_BACKOFF_S = 3.0
+FEDERATION_CLIENT_PIN_S = 10.0
+FEDERATION_STEAL_COOLDOWN_S = 0.05
+
+# --- replicated coordination metadata (backuwup_tpu/defaults.py:383-408) -----
+# ring successors a partition's operation log ships to, the ship RPC's
+# timeout and retry rounds, the forward deadline, and successor-side probing
+REPL_SUCCESSORS = 2
+REPL_SHIP_TIMEOUT_S = 2.0
+REPL_SHIP_RETRIES = 2
+REPL_SHIP_RETRY_BASE_S = 0.2
+REPL_FORWARD_TIMEOUT_S = 10.0
+REPL_PROBE_INTERVAL_S = 2.0
+REPL_PROBE_FAILURES = 2
+
+# --- server-side TTLs (backuwup_tpu/defaults.py:411-413) ---------------------
+AUTH_CHALLENGE_TTL_S = 30.0
+SESSION_TTL_S = 24 * 3600.0
+P2P_REQUEST_TTL_S = 60.0

@@ -1,3 +1,5 @@
-"""Networking: for now the host storage part of the P2P data plane
-(:mod:`.p2p`); the transport, client and server come with the network
-plane."""
+"""Networking: coordination server, client control plane, P2P data plane.
+
+Counterpart of ``backuwup_tpu/net/``: the same wire bytes, SQLite schema,
+metric names and crash-site names, so either package's clients talk to
+either package's server and nodes."""

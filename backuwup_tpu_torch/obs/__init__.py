@@ -1,7 +1,7 @@
 """Observability plane of the port: metrics, traces, event journal.
 
 Counterpart of the parts of ``backuwup_tpu/obs/`` that the backup data
-plane writes to:
+plane and the network plane write to:
 
 * :mod:`~backuwup_tpu_torch.obs.metrics` -- the process-wide registry of
   labeled counters, gauges and histograms (the same metric names);
@@ -10,11 +10,17 @@ plane writes to:
 * :mod:`~backuwup_tpu_torch.obs.journal` -- the size-rotated JSONL event
   journal;
 * :mod:`~backuwup_tpu_torch.obs.profile` -- the dispatch and tiered-dedup
-  counters.
+  counters;
+* :mod:`~backuwup_tpu_torch.obs.invariants` -- the durability invariant
+  monitor, whose ``bkw_durability_*`` facts ``/healthz`` reads;
+* :mod:`~backuwup_tpu_torch.obs.slo` and
+  :mod:`~backuwup_tpu_torch.obs.expo` -- the SLO status and the
+  ``/metrics`` + ``/healthz`` exposition of the coordination server,
+  imported where they are used, as in the reference.
 
-Stdlib only: no module here imports ``torch``.
+No module here imports ``torch``; ``expo`` imports ``aiohttp``.
 """
 
-from . import journal, metrics, profile, trace
+from . import invariants, journal, metrics, profile, trace
 
-__all__ = ["journal", "metrics", "profile", "trace"]
+__all__ = ["invariants", "journal", "metrics", "profile", "trace"]

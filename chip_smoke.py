@@ -58,21 +58,29 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    (some answered by the cold tier), the hot table under the budget; and
    a smaller history's front growing below the cap (K5's migration rounds
    between CUDA events, held against the plain migration);
-6. the stripe phase (:func:`phase_stripe`), over the packfiles the pack
-   phase sealed in backup 1 (~840 MiB; the pack phase's manifest oracles
-   run beside it): what the engine does to their bytes without a network --
+6. the stripe phase (:func:`phase_stripe`), over the first 150 of the
+   ~246 packfiles the pack phase sealed in backup 1 (~520 of ~840 MiB;
+   the pack phase's manifest oracles run beside it): what the engine
+   does to their bytes, over the port's
+   network plane -- its ``CoordinationServer`` on ``127.0.0.1`` and eight
+   clients (an owner and seven holders, each its own identity, store,
+   ``ServerClient`` and ``P2PNode``): holders matched through the server,
    challenge tables, ``split_packfile(.., 4, 2, GpuBackend())``, a shard
-   to each of six synthetic peers through ``ReceivedFilesWriter``, audit
-   rounds (all pass, then a corrupted window detected and its peer
-   demoted), two peers dark and their shards rebuilt byte-identical,
-   the four survivors read back into ``RestoreFilesWriter`` and
+   to each of six holders over signed P2P transports, audit rounds over
+   the wire answered by each holder's ``serve_audit`` on ``GpuBackend``
+   (all pass, then a corrupted window detected and its holder demoted),
+   two holders dark, the survivors' shards pulled over ``RESTORE_FETCH``
+   and the lost ones rebuilt byte-identical and re-homed on a seventh
+   holder the server matched, ``backup_done`` / ``backup_restore``, the
+   survivors' shards pulled into ``RestoreFilesWriter`` and
    ``assemble_tree``; every assembled packfile equal to the sealed one,
-   snapshot 1 restored from them byte-identical, every container
-   equal to the host oracle's; K2/K6 launches, ``digest_many`` calls and
-   their time, MiB/s of split, rebuild and assemble.
+   snapshot 1 restored from them (and local copies of the rest)
+   byte-identical, every container equal to the host oracle's; K2/K6 launches, ``digest_many`` calls and their
+   time, MiB/s of split, delivery, pulls, rebuild and assemble, audit
+   round trips, the server's ``/healthz`` and counters.
 
-The build phase also logs whether ``aiohttp``, ``websockets`` and
-``cryptography`` import here (the engine's network plane needs them).
+The build phase also logs the versions of ``aiohttp``, ``websockets`` and
+``cryptography``, which the network plane imports.
 
 Prints a ``{"kernels": [...]}`` JSON line and, last, the device line.
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -821,6 +829,18 @@ def log_network_packages() -> None:
     log("network packages: " + ", ".join(found))
 
 
+def log_host(torch) -> None:
+    """One line: the host's cores as this process sees them (the stripe
+    phase's one event loop shares them with oracle workers)."""
+    try:
+        quota = Path("/sys/fs/cgroup/cpu.max").read_text().strip()
+    except OSError:
+        quota = "unknown"
+    log(f"host: os.cpu_count() {os.cpu_count()}, affinity "
+        f"{len(os.sched_getaffinity(0))} cores, cgroup cpu.max {quota}, "
+        f"torch intra-op threads {torch.get_num_threads()}")
+
+
 def zero_counts(counters) -> None:
     for fns in counters.values():
         for fn in fns:
@@ -1139,6 +1159,13 @@ PACK_SPEC = {
     "A": {"big": 3, "multi": 100, "tiny": 1000, "repeats": 10, "stream": 1},
     "B": {"big": 1, "multi": 60, "tiny": 600, "repeats": 5, "stream": 0},
 }
+
+# the packfiles of backup 1 the stripe phase ships, audits, rebuilds and
+# restores over the network, of ~246; snapshot 1 restores the rest from
+# their local copies.  The transport moves ~9-10 MiB/s a leg (every shard
+# over TRANSFER_CHUNK_BYTES costs a host BLAKE3 on each side), and all of
+# them would take the script past 1,000 s (PERF.md §4)
+STRIPE_PACKFILES = 150
 
 
 def write_tree(rng, root: Path, counts, spec) -> int:
@@ -1655,12 +1682,12 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None,
             shutil.rmtree(dest)
         rels = sorted(files2)
         streams = [(src / rel).read_bytes() for rel in rels]
-        # with ``after`` to run, the oracles run beside it, on all but three
-        # cores (the stripe phase's host thread and its own two oracle
-        # workers keep those): they need only the streams
+        # with ``after`` to run, the oracles run beside it, on all but four
+        # cores (the stripe phase's event loop, its device thread and its
+        # own two oracle workers keep those): they need only the streams
         workers = min(8, os.cpu_count() or 1)
         if after is not None:
-            workers = max(1, workers - 3)
+            workers = max(1, workers - 4)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(1) as bg:
             pending = bg.submit(oracle_manifests, streams, backend.params,
@@ -1711,79 +1738,116 @@ def oracle_containers(paths, workers: int):
         return list(pool.map(_oracle_containers, paths))
 
 
-def phase_stripe(torch, rng, card, counters, ctx, device=None):
+def phase_stripe(torch, rng, card, counters, ctx, device=None,
+                 n_packfiles=None):
     """What the engine does to the bytes of every sealed packfile after
     the pack phase (``engine.py`` send, audit, repair and restore paths),
-    through the port's entry points and without a network:
+    through the port's entry points and over its network plane: the
+    port's ``CoordinationServer`` on ``127.0.0.1`` (port 0, its
+    write-behind SQLite store in the phase's temporary directory), and
+    one machine per client -- the owner, whose identity is the pack
+    phase's keys, and seven holders -- each with its own ``KeyManager``,
+    ``Store``, ``ServerClient`` (register, login, push channel) and
+    ``P2PNode``, wired as ``ClientApp`` wires them:
 
-    1. a challenge table of the packfile, ``split_packfile(data, 4, 2,
-       GpuBackend())``, then one table per shard container;
-    2. shard i to synthetic peer i (six peers, each its own ``Store`` and
-       obfuscation key) through ``ReceivedFilesWriter.sink``; the owner
-       records each placement with its shard index;
-    3. one audit round per peer (``select_challenges`` ->
-       ``compute_proofs`` -> ``check_proofs`` -> the ledger): all pass;
-    4. one window of one peer's next challenged shard corrupted: the next
-       round fails it, the ledger demotes it out of
-       ``find_peers_with_storage``, the other peers pass;
-    5. that peer and one more go dark, their shards deleted;
-       ``rebuild_shards`` regenerates both lost shards of every stripe
-       from the other four, byte for byte;
-    6. the surviving four shards of every stripe read back (de-obfuscated)
-       into ``RestoreFilesWriter``, then ``assemble_tree``;
+    1. matching: the owner asks the server for storage spread over six
+       peers, six holders answer with their own requests, and every
+       ``BackupMatched`` push is recorded in both stores;
+    2. a challenge table of each packfile, ``split_packfile(data, 4, 2,
+       GpuBackend())`` and one table per shard container; shard i of
+       every stripe to holder i over one ``TRANSPORT`` ``Transport``
+       each (signed, acked frames into the holder's ``Receiver`` and
+       ``ReceivedFilesWriter``; a stalled ack redials and sends again, as
+       ``TransferScheduler.run_resumable`` does); the owner records each
+       placement with its shard index; every stored container,
+       de-obfuscated, equal to the sent one;
+    3. one audit round per holder over an ``AUDIT`` transport (CHALLENGE
+       -> the holder's ``serve_audit`` on its ``GpuBackend`` -> PROOF ->
+       ``check_proofs`` -> the ledger and ``audit_report``): all pass;
+    4. one window of one holder's next challenged shard corrupted on its
+       disk: the next round, ``AUDIT_SERVE_MIN_INTERVAL_S`` later, fails
+       it, the ledger demotes it out of ``find_peers_with_storage``, the
+       other holders pass;
+    5. that holder and one more go dark (client and node closed, shards
+       deleted); the four survivors' shards pulled over
+       ``RESTORE_FETCH``, ``rebuild_shards`` regenerates both lost shards
+       of every stripe byte for byte; a seventh holder matched through the
+       server takes them over a transport, and ``repair_report`` tells the
+       server of each lost peer;
+    6. ``backup_done`` with snapshot 1's root, ``backup_restore`` returning
+       it and the negotiated peers; the survivors' shards pulled over
+       ``RESTORE_FETCH`` into ``RestoreFilesWriter``, then
+       ``assemble_tree``; the seventh holder's stored shards equal to the
+       rebuilt ones;
     7. every assembled packfile equal to the sealed one, and
-       ``DirUnpacker`` over the assembled packs restoring the pack phase's
-       snapshots byte-identical to their trees.
+       ``DirUnpacker`` over the assembled packs (and the local copies of
+       the packfiles the phase did not take) restoring snapshot 1
+       byte-identical to its tree; the server's ``/healthz`` and its
+       ``bkw_*`` counters.
 
     Every container is held equal to the host oracle's (``CpuBackend``, in
-    worker processes).  The phase takes the packfiles of the pack phase's
-    backup 1 (~840 MiB), which restore snapshot 1 alone: over both
-    backups' it took 420.6 s of the script's 1200 s on an NVIDIA H100
-    80GB HBM3 at 700.00 W, ~4,500 ``digest_many`` calls at ~81 ms each
-    (PERF.md §4).  Returns the K2/K6 launches of the phase."""
+    worker processes).  The phase takes the first ``n_packfiles`` (all
+    when None) of the pack phase's backup 1 (~840 MiB in 246), which
+    restore snapshot 1 alone: all of them without the network took 303.5
+    s on an NVIDIA H100 80GB HBM3 at 700.00 W, ~2,964 ``digest_many``
+    calls at ~88 ms each (PERF.md §5).  Returns the K2/K6 launches of the
+    phase."""
     import asyncio
+    import gc
     import hashlib
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
     from backuwup_tpu_torch import defaults, wire
     from backuwup_tpu_torch.audit import (build_challenge_table,
-                                          check_proofs, compute_proofs,
-                                          record_fail, record_pass,
-                                          select_challenges)
+                                          check_proofs, record_fail,
+                                          record_pass, select_challenges)
+    from backuwup_tpu_torch.crypto import KeyManager
     from backuwup_tpu_torch.erasure import rs_gpu
     from backuwup_tpu_torch.erasure import stripe as rs_stripe
-    from backuwup_tpu_torch.net.p2p import (ReceivedFilesWriter,
-                                            RestoreFilesWriter, obfuscate)
+    from backuwup_tpu_torch.net import p2p
+    from backuwup_tpu_torch.net.p2p import (ReceivedFilesWriter, Receiver,
+                                            RestoreFilesWriter)
+    from backuwup_tpu_torch.net.server import CoordinationServer
+    from backuwup_tpu_torch.net.transfer import TransferScheduler
     from backuwup_tpu_torch.ops.backend import GpuBackend
     from backuwup_tpu_torch.snapshot.blob_index import ChallengeTable
     from backuwup_tpu_torch.snapshot.packfile import packfile_path
     from backuwup_tpu_torch.snapshot.unpacker import DirUnpacker
-    from backuwup_tpu_torch.store import Store
     from backuwup_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
     cuda = device.type == "cuda"
     k, m = defaults.RS_K, defaults.RS_M
+    SHARD = wire.FileInfoKind.SHARD
     tmp, keys, pack_dir = ctx["tmp"] / "stripe", ctx["keys"], ctx["pack_dir"]
-    packs = [(pid, packfile_path(pack_dir, pid)) for pid in ctx["packfiles"]]
+    sealed = [(pid, packfile_path(pack_dir, pid)) for pid in ctx["packfiles"]]
+    packs = sealed[:n_packfiles]
     total = sum(p.stat().st_size for _pid, p in packs)
     sizes = [p.stat().st_size for _pid, p in packs]
-    log(f"stripe: the {len(packs)} packfiles of backup 1, "
+    log(f"stripe: {len(packs)} of the {len(sealed)} packfiles of backup 1, "
         f"{total / MiB:.1f} MiB (sizes "
-        f"{min(sizes)}-{max(sizes)} B), RS({k}, {m}) over {k + m} peers")
+        f"{min(sizes)}-{max(sizes)} B), RS({k}, {m}) over {k + m} peers "
+        f"matched by the port's coordination server, over its P2P "
+        f"transport")
 
-    gpu = GpuBackend(device=device)
+    gpu = GpuBackend(device=device)  # the owner's
+    prover = GpuBackend(device=device)  # the holders' (one card here)
     calls = []  # host seconds of each digest_many call
-    digest_many = gpu.digest_many
 
-    def timed_digest_many(datas):
-        t0 = time.perf_counter()
-        out = digest_many(datas)
-        calls.append(time.perf_counter() - t0)
-        return out
+    def timing(backend):
+        digest_many = backend.digest_many
 
-    gpu.digest_many = timed_digest_many
+        def timed_digest_many(datas):
+            t0 = time.perf_counter()
+            out = digest_many(datas)
+            calls.append(time.perf_counter() - t0)
+            return out
+
+        backend.digest_many = timed_digest_many
+
+    timing(gpu)
+    timing(prover)
     k6_events = []  # CUDA events around each K6 launch
     kernel = rs_gpu.gf_matmul
 
@@ -1797,40 +1861,116 @@ def phase_stripe(torch, rng, card, counters, ctx, device=None):
         k6_events.append((a, b))
         return out
 
-    owner_id = b"\x0b" * 32
-    owner = Store(tmp / "owner" / "cfg", data_base=tmp / "owner" / "data")
-    tables = ChallengeTable(keys, owner.challenge_dir())
-    grant = 2 * total + (1 << 30)
-    peers = []  # (peer id, its store, its obfuscation key, its writer)
-    for i in range(k + m):
-        peer_id = bytes([0xA0 + i]) * 32
-        st = Store(tmp / f"peer{i}" / "cfg",
-                   data_base=tmp / f"peer{i}" / "data")
-        key = rng.bytes(4)
-        st.set_obfuscation_key(key)
-        st.add_peer_negotiated(owner_id, grant)
-        owner.add_peer_negotiated(peer_id, grant)
-        peers.append((peer_id, st, key, ReceivedFilesWriter(st, owner_id)))
-    loop = asyncio.new_event_loop()
+    frames = {"n": 0, "bytes": 0}  # every signed frame a Transport ships
+    ship = p2p.Transport._ship
 
-    def read_back(i, sid):
-        """What holder i's transport serves: its stored file,
-        de-obfuscated."""
-        _pid, st, key, _w = peers[i]
-        path = st.received_dir(owner_id) / "shard" / sid.hex()
-        return obfuscate(path.read_bytes(), key)
+    async def counted_ship(self, raw, *args, **kw):
+        frames["n"] += 1
+        frames["bytes"] += len(raw)
+        return await ship(self, raw, *args, **kw)
 
-    async def send_stripe(pid, containers):
-        await asyncio.gather(*(
-            w.sink(wire.FileInfoKind.SHARD, rs_stripe.shard_id(pid, i), blob)
-            for i, ((_p, _s, _k, w), blob) in enumerate(
-                zip(peers, containers))))
+    host_b3 = []  # seconds of each host BLAKE3 of a chunked send's file
+    blake3_many = p2p.blake3_many
 
-    def audit_round(i):
-        peer_id, st, _key, _w = peers[i]
-        challenges, expected = select_challenges(owner, tables, peer_id)
-        proofs = compute_proofs(st, gpu, owner_id, challenges)
-        return challenges, check_proofs(challenges, expected, proofs)
+    def timed_blake3_many(datas):
+        t0 = time.perf_counter()
+        out = blake3_many(datas)
+        host_b3.append(time.perf_counter() - t0)
+        return out
+
+    redials, refetched = [], []  # sessions dialed again, wants asked again
+    # how a session ends when its other side gave up on it
+    closed = (p2p.P2PError, p2p.websockets.ConnectionClosed)
+    lag = {"max": 0.0, "over_1s": 0}  # the event loop's late wake-ups
+    sinks = []  # seconds of each holder's ReceivedFilesWriter.sink
+    gc_pauses = []  # (generation, seconds) of each collection in the phase
+    gc_start = {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start["t"] = time.perf_counter()
+        elif "t" in gc_start:
+            gc_pauses.append((info["generation"],
+                              time.perf_counter() - gc_start.pop("t")))
+
+    def transport_state():
+        """One line on the transports so far (logged as delivery goes and
+        when the phase fails)."""
+        sink_ms = (f"median {statistics.median(sinks) * 1e3:.3f} ms, max "
+                   f"{max(sinks) * 1e3:.3f} ms" if sinks else "none yet")
+        return (f"{frames['n']} signed frames, {frames['bytes']} B through "
+                f"Transport._ship; {len(redials)} sessions redialed after a "
+                f"stalled ack, wants asked again {refetched}; holders' "
+                f"sinks {len(sinks)}, {sink_ms}; event loop woken late by up "
+                f"to {lag['max'] * 1e3:.1f} ms ({lag['over_1s']} times over "
+                f"1 s); host BLAKE3 of files over "
+                f"{defaults.TRANSFER_CHUNK_BYTES} B (chunked sends, partials, "
+                f"resume offers) {len(host_b3)} calls, {sum(host_b3):.3f} s; "
+                f"{len(gc_pauses)} garbage collections, "
+                f"{sum(s for _g, s in gc_pauses):.3f} s, the longest "
+                f"{max(gc_pauses, default=(0, 0.0), key=lambda g: g[1])}")
+
+    class Machine:
+        """One client on its own machine, wired as ``ClientApp`` wires
+        it: identity, store, control-plane client and P2P node."""
+
+        def __init__(self, name, mkeys, addr):
+            from backuwup_tpu_torch.net.client import ServerClient
+            from backuwup_tpu_torch.net.p2p import P2PNode
+            from backuwup_tpu_torch.store import Store
+
+            self.name, self.keys, self.id = name, mkeys, mkeys.client_id
+            self.store = Store(tmp / name / "cfg",
+                               data_base=tmp / name / "data")
+            self.client = ServerClient(mkeys, self.store, addr=addr,
+                                       tls=False)
+            self.node = P2PNode(mkeys, self.store, self.client)
+            self.client.on_backup_matched = self.matched
+            self.stored = 0  # files its Receivers stored for others
+
+        async def matched(self, msg):
+            self.store.add_peer_negotiated(msg.destination_id,
+                                           msg.storage_available)
+
+        async def join(self):
+            await self.client.register()
+            await self.client.login()
+            self.client.start_ws()
+            await asyncio.wait_for(self.client.ws_connected.wait(), 30)
+
+        def hold(self):
+            """Serve as a holder: store what a matched peer sends, answer
+            its audits on the holder's ``GpuBackend`` and its fetches."""
+            self.store.set_obfuscation_key(rng.bytes(4))
+
+            async def accept(source, transport):
+                writer = ReceivedFilesWriter(self.store, source)
+                sink = writer.sink
+
+                async def timed_sink(*args):
+                    t0 = time.perf_counter()
+                    await sink(*args)
+                    sinks.append(time.perf_counter() - t0)
+
+                writer.sink = timed_sink  # sink_part's final write too
+                try:
+                    self.stored += await Receiver(
+                        transport, writer.sink, part_sink=writer.sink_part,
+                        resume_query=writer.resume_offer).run()
+                except closed:
+                    pass  # the owner dropped the session (a stalled ack)
+
+            async def audit(source, transport):
+                await self.node.serve_audit(source, transport, prover)
+
+            self.node.on_transport_request = accept
+            self.node.on_audit_request = audit
+            self.node.on_restore_fetch_request = \
+                self.node.serve_restore_fetch
+
+        async def close(self):
+            await self.client.close()
+            self.store.close()
 
     # the host oracle splits the same packfiles from disk on two worker
     # processes beside the phase
@@ -1838,142 +1978,504 @@ def phase_stripe(torch, rng, card, counters, ctx, device=None):
     background = ThreadPoolExecutor(1)
     oracle = background.submit(oracle_containers,
                                [str(p) for _pid, p in packs], 2)
+    sha = {}  # sha256 of each packfile's six containers
+    steps = {}  # wall seconds of each step
+    out = {}
+
+    async def wait_until(cond, what, timeout=60.0):
+        t0 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"timed out waiting for {what}")
+            await asyncio.sleep(0.02)
+
+    async def match(owner, holders, grant):
+        """The owner asks for ``grant`` on each of ``len(holders)`` peers;
+        each holder answers with a request of ``grant``."""
+        await owner.client.backup_storage_request(
+            grant * len(holders), min_peers=len(holders))
+        for h in holders:
+            await h.client.backup_storage_request(grant)
+        await wait_until(lambda: all(
+            owner.store.get_peer(h.id) is not None
+            and h.store.get_peer(owner.id) is not None for h in holders),
+            "BackupMatched pushes")
+        for h in holders:
+            if owner.store.get_peer(h.id).bytes_negotiated != grant or \
+                    h.store.get_peer(owner.id).bytes_negotiated != grant:
+                raise AssertionError(f"{h.name}: negotiated bytes differ "
+                                     f"from the grant {grant}")
+
+    async def connect(owner, h, purpose):
+        return await owner.node.connect(h.id, purpose, timeout=30.0)
+
+    class Link:
+        """The owner's TRANSPORT session to one holder, sent on as the
+        engine sends (``TransferScheduler.run_resumable``): a stalled ack
+        drops the session, a new one is dialed through the server, and
+        the file goes again (a chunked one from the verified offset)."""
+
+        def __init__(self, owner, h):
+            self.owner, self.h, self.t = owner, h, None
+
+        async def redial(self):
+            self.t = await connect(self.owner, self.h,
+                                   wire.RequestType.TRANSPORT)
+            return self.t
+
+        async def drop(self):
+            redials.append(self.h.name)
+            await self.t.close()
+
+        async def send(self, fid, blob):
+            if self.t is None:
+                await self.redial()
+            await TransferScheduler.run_resumable(
+                self.t, self.h.id, blob, SHARD, fid, redial=self.redial,
+                on_drop=self.drop)
+
+        async def close(self):
+            if self.t is not None:
+                await self.t.close()
+
+    async def audit(owner, tables, h, rtts):
+        """``Engine.audit_peer`` against holder ``h``: CHALLENGE over an
+        AUDIT transport, the PROOF checked, the verdict in the ledger and
+        reported to the server."""
+        challenges, expected = select_challenges(owner.store, tables, h.id)
+        t0 = time.perf_counter()
+        t = await connect(owner, h, wire.RequestType.AUDIT)
+        try:
+            seq = t.seq
+            t.seq += 1
+            await t.send_body(wire.P2PBody(
+                kind=wire.P2PBodyKind.CHALLENGE,
+                header=wire.P2PHeader(sequence_number=seq,
+                                      session_nonce=t.session_nonce),
+                challenges=tuple(challenges)))
+            reply = await t.recv_body(defaults.AUDIT_PROOF_TIMEOUT_S)
+        finally:
+            await t.close()
+        rtts.append(time.perf_counter() - t0)
+        if reply.kind != wire.P2PBodyKind.PROOF or \
+                reply.header.sequence_number != seq:
+            raise AssertionError(f"{h.name}: bad or replayed proof body")
+        res = check_proofs(challenges, expected, reply.proofs)
+        if res.passed:
+            state = record_pass(owner.store, h.id)
+        else:
+            state = record_fail(owner.store, h.id, res.detail)
+        await owner.client.audit_report(h.id, res.passed, res.detail)
+        return res, state
+
+    async def fetch(owner, h, wants, writer, root):
+        """``RESTORE_FETCH`` pulls of ``wants`` from holder ``h`` into
+        ``writer`` (whose tree is ``root``), the wants that did not land
+        asked again up to twice (the engine's ``RESTORE_FETCH_RETRIES``,
+        ``backuwup_tpu/defaults.py:145``), as its pull re-queues them;
+        returns the files received."""
+        got = 0
+        for _attempt in range(3):
+            missing = [(kind, fid) for kind, fid in wants if not (
+                root / "shard" / fid[:-1].hex() / f"{fid[-1]:03d}").exists()]
+            if not missing:
+                break
+            if _attempt:
+                refetched.append((h.name, len(missing)))
+            t = await connect(owner, h, wire.RequestType.RESTORE_FETCH)
+            try:
+                await owner.node.request_fetch(t, missing)
+                got += await asyncio.wait_for(Receiver(
+                    t, writer.sink, part_sink=writer.sink_part,
+                    resume_query=writer.resume_offer).run(), 900)
+            except closed:
+                pass  # the holder gave up on a stalled ack: ask again
+            finally:
+                await t.close()
+        if any(not (root / "shard" / fid[:-1].hex()
+                    / f"{fid[-1]:03d}").exists() for _kind, fid in wants):
+            raise AssertionError(f"{h.name} did not return every want")
+        return got
+
+    def prepare(pid, path, tables):
+        """Tables and split of one packfile (the owner's device work)."""
+        data = path.read_bytes()
+        t0 = time.perf_counter()
+        tables.save(pid, build_challenge_table(gpu, data))
+        t1 = time.perf_counter()
+        containers = rs_stripe.split_packfile(data, k, m, gpu)
+        t2 = time.perf_counter()
+        for i, blob in enumerate(containers):
+            tables.save(rs_stripe.shard_id(pid, i),
+                        build_challenge_table(gpu, blob))
+        sha[pid] = [hashlib.sha256(b).digest() for b in containers]
+        return containers, (t1 - t0) + (time.perf_counter() - t2), t2 - t1
+
+    def check_stored(h, owner_id, want):
+        """Holder ``h``'s stored shards, de-obfuscated: ``want`` maps each
+        shard id to the sha256 of the container sent."""
+        got = {fid: hashlib.sha256(data).digest() for _kind, fid, data
+               in ReceivedFilesWriter(h.store, owner_id).iter_stored()}
+        if got != want:
+            raise AssertionError(f"{h.name}: stored containers differ "
+                                 "from the ones sent")
+        return len(got)
+
+    def fetched(root, pid, i):
+        return (root / "shard" / pid.hex() / f"{i:03d}").read_bytes()
+
+    async def watch_loop():
+        """How late the event loop wakes a 50 ms sleeper: a stalled loop
+        (or host) delays every transport's frames and acks alike."""
+        while True:
+            t0 = time.perf_counter()
+            await asyncio.sleep(0.05)
+            late = time.perf_counter() - t0 - 0.05
+            lag["max"] = max(lag["max"], late)
+            lag["over_1s"] += late > 1.0
+
+    async def run():
+        watcher = asyncio.create_task(watch_loop())
+        (tmp / "server").mkdir(parents=True)
+        server = CoordinationServer(db_path=tmp / "server" / "server.db")
+        port = await server.start(host="127.0.0.1", port=0)
+        addr = f"127.0.0.1:{port}"
+        owner = Machine("owner", keys, addr)
+        holders = [Machine(f"peer{i}", KeyManager.from_secret(rng.bytes(32)),
+                           addr) for i in range(k + m + 1)]
+        machines = [owner] + holders
+        try:
+            # 1. identities and matching
+            t0 = time.perf_counter()
+            for mc in machines:
+                await mc.join()
+            for h in holders:
+                h.hold()
+            tables = ChallengeTable(keys, owner.store.challenge_dir())
+            # each holder stores one shard of every stripe, a quarter of
+            # the packfile bytes plus headers; the seventh two of them
+            grant = total + 64 * MiB
+            stripe_holders, spare = holders[:k + m], holders[k + m]
+            await match(owner, stripe_holders, grant)
+            steps["join + match"] = time.perf_counter() - t0
+            log(f"stripe: server on {addr} (write-behind SQLite store); "
+                f"{len(machines)} clients registered, logged in and on the "
+                f"push channel; the owner matched with {k + m} holders at "
+                f"{grant} B each, every BackupMatched recorded on both "
+                f"sides, in {steps['join + match']:.3f} s")
+
+            # 2. tables, split, and delivery over one transport per holder
+            t0 = time.perf_counter()
+            links = [Link(owner, h) for h in stripe_holders]
+            t_split = t_tables = t_send = 0.0
+            sent_bytes = 0
+            for n, (pid, path) in enumerate(packs):
+                if n and n % 64 == 0:
+                    log(f"stripe: {n} packfiles delivered, "
+                        f"{time.perf_counter() - t0:.1f} s; "
+                        + transport_state())
+                containers, dt_tables, dt_split = await asyncio.to_thread(
+                    prepare, pid, path, tables)
+                t_tables += dt_tables
+                t_split += dt_split
+                t1 = time.perf_counter()
+                # one holder after another: a shard over
+                # TRANSFER_CHUNK_BYTES costs a host BLAKE3 on each side,
+                # and concurrent ones in this one process share its
+                # interpreter lock past the last part's ack deadline
+                for i, (link, blob) in enumerate(zip(links, containers)):
+                    await link.send(rs_stripe.shard_id(pid, i), blob)
+                t_send += time.perf_counter() - t1
+                for i, blob in enumerate(containers):
+                    h = stripe_holders[i]
+                    owner.store.add_peer_transmitted(h.id, len(blob))
+                    owner.store.record_placement(pid, h.id, len(blob),
+                                                 shard_index=i)
+                    sent_bytes += len(blob)
+            for link in links:
+                await link.close()
+            # a file sent again after a stalled ack is stored once and
+            # counted by both sessions' Receivers
+            await wait_until(lambda: sum(h.stored for h in stripe_holders)
+                             >= (k + m) * len(packs), "holders' Receivers")
+            steps["split + tables + delivery"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            n_stored = 0
+            for i, h in enumerate(stripe_holders):
+                n_stored += await asyncio.to_thread(
+                    check_stored, h, owner.id,
+                    {rs_stripe.shard_id(pid, i): sha[pid][i]
+                     for pid, _p in packs})
+            out["n_split_calls"] = len(calls)
+            log(f"stripe: split {len(packs)} packfiles ({total / MiB:.1f} "
+                f"MiB) in {t_split:.3f} s = {total / MiB / t_split:.1f} "
+                f"MiB/s; {7 * len(packs)} challenge tables in "
+                f"{t_tables:.3f} s; {(k + m) * len(packs)} shard containers "
+                f"({sent_bytes / MiB:.1f} MiB) delivered to {k + m} holders "
+                f"over signed transports in {t_send:.3f} s = "
+                f"{sent_bytes / MiB / t_send:.1f} MiB/s; "
+                f"{frames['n']} frames, {frames['bytes']} B shipped, "
+                f"{int(metric('bkw_transfer_parts_total'))} of them FILE_PART "
+                f"frames of chunked sends; {len(redials)} sessions redialed "
+                f"after a stalled ack ({sorted(set(redials))}); the step "
+                f"{steps['split + tables + delivery']:.3f} s; {n_stored} "
+                f"stored containers, de-obfuscated, equal to the sent ones "
+                f"(checked in {time.perf_counter() - t1:.3f} s) [{card}]")
+
+            # 3. one audit round per holder over the wire: all pass
+            t0 = time.perf_counter()
+            rtts = []
+            for h in stripe_holders:
+                res, _state = await audit(owner, tables, h, rtts)
+                if not res.passed or res.checked != \
+                        defaults.AUDIT_SAMPLES_PER_ROUND:
+                    raise AssertionError(f"{h.name} failed its audit: "
+                                         f"{res.detail}")
+            steps["audit round 1"] = time.perf_counter() - t0
+            round1_end = time.time()
+            log(f"stripe: audit round 1 over AUDIT transports: {k + m} "
+                f"holders, {defaults.AUDIT_SAMPLES_PER_ROUND} challenges "
+                f"each, all pass; round trip median "
+                f"{statistics.median(rtts) * 1e3:.3f} ms, max "
+                f"{max(rtts) * 1e3:.3f} ms; round "
+                f"{steps['audit round 1']:.3f} s [{card}]")
+
+            # 4. corrupt one window of holder 1's next challenged shard
+            bad, dark = 1, (1, 4)
+            bad_h = stripe_holders[bad]
+            first_pid, _size, idx = owner.store.shard_placements_for_peer(
+                bad_h.id)[0]
+            sid = first_pid + bytes([idx])
+            entry = tables.load(sid)[owner.store.get_audit_cursor(sid)]
+            target = bad_h.store.received_dir(owner.id) / "shard" / sid.hex()
+            raw = bytearray(target.read_bytes())
+            raw[entry.offset + entry.length // 2] ^= 0xFF
+            target.write_bytes(bytes(raw))
+            # a holder serves one audit per peer per interval
+            await asyncio.sleep(max(0.0, round1_end + 0.5 - time.time()
+                                    + defaults.AUDIT_SERVE_MIN_INTERVAL_S))
+            t0 = time.perf_counter()
+            rtts2 = []
+            for i, h in enumerate(stripe_holders):
+                res, state = await audit(owner, tables, h, rtts2)
+                if i == bad:
+                    if res.passed or "digest mismatch" not in res.detail:
+                        raise AssertionError("the corrupted window passed")
+                    bad_state = state
+                elif not res.passed:
+                    raise AssertionError(f"{h.name} failed round 2: "
+                                         f"{res.detail}")
+            steps["audit round 2"] = time.perf_counter() - t0
+            listed = [p.pubkey for p in owner.store.find_peers_with_storage()]
+            if not bad_state.demoted or bad_h.id in listed or \
+                    len(listed) != k + m - 1:
+                raise AssertionError("the failing holder was not demoted")
+            log(f"stripe: audit round 2 ({defaults.AUDIT_SERVE_MIN_INTERVAL_S}"
+                f" s after round 1 ended, the holders' rate limit): "
+                f"{bad_h.name}'s "
+                f"corrupted window detected ({bad_state.last_result[:60]}"
+                f"...), demoted, out of find_peers_with_storage "
+                f"({len(listed)} peers left); the others pass; round trip "
+                f"median {statistics.median(rtts2) * 1e3:.3f} ms; round "
+                f"{steps['audit round 2']:.3f} s")
+
+            # 5. holders 1 and 4 go dark; the survivors' shards pulled,
+            # the lost ones rebuilt and re-homed on a seventh holder
+            t0 = time.perf_counter()
+            for i in dark:
+                await stripe_holders[i].close()
+                shutil.rmtree(stripe_holders[i].store.data_base
+                              / "received_packfiles")
+            alive = [i for i in range(k + m) if i not in dark]
+            staging = RestoreFilesWriter(owner.store, base=tmp / "repair")
+            t1 = time.perf_counter()
+            for i in alive:
+                await fetch(owner, stripe_holders[i],
+                            [(SHARD, rs_stripe.shard_id(pid, i))
+                             for pid, _p in packs], staging, tmp / "repair")
+            t_repair_pull = time.perf_counter() - t1
+            calls_before = len(calls)
+            t_rebuild = 0.0
+            rebuilt_all = {}
+            for pid, _path in packs:
+                def rebuild():
+                    blobs = [fetched(tmp / "repair", pid, i) for i in alive]
+                    return rs_stripe.rebuild_shards(blobs, list(dark), gpu)
+                t1 = time.perf_counter()
+                rebuilt = await asyncio.to_thread(rebuild)
+                t_rebuild += time.perf_counter() - t1
+                for i in dark:
+                    if hashlib.sha256(rebuilt[i]).digest() != sha[pid][i]:
+                        raise AssertionError(f"rebuilt shard {i} of "
+                                             f"{pid.hex()} differs")
+                rebuilt_all[pid] = rebuilt
+            out["n_rebuild_calls"] = len(calls) - calls_before
+            shutil.rmtree(tmp / "repair")
+            lost_bytes = {i: sum(len(r[i]) for r in rebuilt_all.values())
+                          for i in dark}
+            await spare.client.backup_storage_request(grant)
+            await owner.client.backup_storage_request(grant)
+            await wait_until(
+                lambda: owner.store.get_peer(spare.id) is not None
+                and spare.store.get_peer(owner.id) is not None,
+                "the seventh holder's BackupMatched")
+            t1 = time.perf_counter()
+            link = Link(owner, spare)
+            try:
+                for pid, r in rebuilt_all.items():
+                    for i in dark:
+                        await link.send(rs_stripe.shard_id(pid, i), r[i])
+            finally:
+                await link.close()
+            await wait_until(lambda: spare.stored >= len(dark) * len(packs),
+                             "the seventh holder's Receiver")
+            t_rehome = time.perf_counter() - t1
+            for i in dark:
+                lost = stripe_holders[i]
+                owner.store.retire_placements(lost.id)
+                await owner.client.repair_report(
+                    lost.id, len(packs), lost_bytes[i], lost_bytes[i])
+            for pid, r in rebuilt_all.items():
+                for i in dark:
+                    owner.store.add_peer_transmitted(spare.id, len(r[i]))
+                    owner.store.record_placement(pid, spare.id, len(r[i]),
+                                                 shard_index=i)
+            del rebuilt_all
+            steps["repair"] = time.perf_counter() - t0
+            rehomed = sum(lost_bytes.values())
+            log(f"stripe: repair: holders {list(dark)} dark; shards "
+                f"{alive} of {len(packs)} stripes pulled over RESTORE_FETCH "
+                f"in {t_repair_pull:.3f} s = "
+                f"{len(alive) * total / 4 / MiB / t_repair_pull:.1f} MiB/s; "
+                f"rebuild of shards {list(dark)} {t_rebuild:.3f} s = "
+                f"{total / MiB / t_rebuild:.1f} MiB/s of packfile, every "
+                f"rebuilt container byte-identical to the original; "
+                f"{2 * len(packs)} rebuilt shards ({rehomed / MiB:.1f} MiB) "
+                f"re-homed on {spare.name}, matched through the server, in "
+                f"{t_rehome:.3f} s = {rehomed / MiB / t_rehome:.1f} MiB/s; "
+                f"repair_report for both; the step {steps['repair']:.3f} s "
+                f"[{card}]")
+
+            # 6. restore: the server's record, then the pull
+            t0 = time.perf_counter()
+            await owner.client.backup_done(ctx["root"])
+            info = await owner.client.backup_restore()
+            want_peers = {stripe_holders[i].id.hex() for i in alive} \
+                | {spare.id.hex()}
+            if info.snapshot_hash != ctx["root"] or \
+                    set(info.peers) != want_peers:
+                raise AssertionError(f"backup_restore returned "
+                                     f"{info.snapshot_hash!r}, {info.peers}")
+            restore = tmp / "restore"
+            writer = RestoreFilesWriter(owner.store, base=restore)
+            t1 = time.perf_counter()
+            got = [await fetch(
+                owner, stripe_holders[i],
+                [(SHARD, rs_stripe.shard_id(pid, i)) for pid, _p in packs],
+                writer, restore) for i in alive]
+            t_pull = time.perf_counter() - t1
+            pulled = sum(len(fetched(restore, pid, i))
+                         for pid, _p in packs for i in alive)
+            calls_before = len(calls)
+            t1 = time.perf_counter()
+            done, failed = await asyncio.to_thread(
+                rs_stripe.assemble_tree, restore / "shard", restore / "pack",
+                gpu)
+            t_assemble = time.perf_counter() - t1
+            out["n_assemble_calls"] = len(calls) - calls_before
+            if failed or sorted(done) != sorted(pid for pid, _p in packs):
+                raise AssertionError(f"assemble_tree failed: {failed[:3]}")
+            steps["restore"] = time.perf_counter() - t0
+            log(f"stripe: restore: the server returned snapshot "
+                f"{info.snapshot_hash.hex()[:16]}... and "
+                f"{len(info.peers)} negotiated peers; {sum(got)} shards "
+                f"({pulled / MiB:.1f} MiB) pulled from {len(alive)} holders "
+                f"over RESTORE_FETCH in {t_pull:.3f} s = "
+                f"{pulled / MiB / t_pull:.1f} MiB/s; assemble_tree "
+                f"{len(done)} packfiles in {t_assemble:.3f} s = "
+                f"{total / MiB / t_assemble:.1f} MiB/s; the step "
+                f"{steps['restore']:.3f} s [{card}]")
+            # the seventh holder stores the rebuilt shards
+            n = await asyncio.to_thread(
+                check_stored, spare, owner.id,
+                {rs_stripe.shard_id(pid, i): sha[pid][i]
+                 for pid, _p in packs for i in dark})
+            log(f"stripe: {spare.name}'s {n} stored shards, de-obfuscated, "
+                f"equal to the rebuilt ones")
+
+            # the server's view
+            import aiohttp
+
+            async with aiohttp.ClientSession() as http:
+                async with http.get(f"http://{addr}/healthz") as r:
+                    health = (r.status, await r.json())
+                async with http.get(f"http://{addr}/metrics") as r:
+                    text = await r.text()
+            lines = [ln for ln in text.splitlines() if ln.startswith((
+                "bkw_matchmakings_total", "bkw_server_requests_total"))
+                and any(s in ln for s in ("matchmakings", "/backups/request",
+                                          "/audit/report", "/repair/report",
+                                          "/p2p/connection/begin",
+                                          "/backups/restore"))]
+            log(f"stripe: server /healthz {health[0]} status "
+                f"{health[1].get('status')}; /metrics: " + "; ".join(lines))
+            if health[0] != 200:
+                raise AssertionError(f"/healthz answered {health[0]}")
+            out["restore"] = restore
+        finally:
+            for mc in machines:
+                await mc.close()
+            await server.stop()
+            watcher.cancel()
+
     zero_counts(counters)
     # the wrapper counts its launches on the module's ``gf_matmul``, which
     # the timing hook stands in for during the phase; the count goes back
     # to the wrapper after it
     timed_gf_matmul.launches = 0
     rs_gpu.gf_matmul = timed_gf_matmul
+    p2p.Transport._ship = counted_ship
+    p2p.blake3_many = timed_blake3_many
+    gc.callbacks.append(on_gc)
+    # the heap the phases before leave in this one process (the pack
+    # phase's 6,000,000-blob index among it) stays out of collections: a
+    # full collection over it paused the event loop 6.8 s, past the 5 s
+    # ack deadline (PERF.md §6)
+    gc.freeze()
     try:
         if cuda:
             torch.cuda.synchronize()
         t_phase = time.perf_counter()
-        # 1-2. tables, split, shard tables, one shard to each peer
-        t_split = t_tables = t_sink = 0.0
-        sha = {}
-        for pid, path in packs:
-            data = path.read_bytes()
-            t0 = time.perf_counter()
-            tables.save(pid, build_challenge_table(gpu, data))
-            t1 = time.perf_counter()
-            containers = rs_stripe.split_packfile(data, k, m, gpu)
-            t2 = time.perf_counter()
-            for i, blob in enumerate(containers):
-                tables.save(rs_stripe.shard_id(pid, i),
-                            build_challenge_table(gpu, blob))
-            t3 = time.perf_counter()
-            loop.run_until_complete(send_stripe(pid, containers))
-            for i, blob in enumerate(containers):
-                owner.add_peer_transmitted(peers[i][0], len(blob))
-                owner.record_placement(pid, peers[i][0], len(blob),
-                                       shard_index=i)
-            sha[pid] = [hashlib.sha256(b).digest() for b in containers]
-            t_tables += (t1 - t0) + (t3 - t2)
-            t_split += t2 - t1
-            t_sink += time.perf_counter() - t3
-        n_split_calls = len(calls)
-        log(f"stripe: split {len(packs)} packfiles ({total / MiB:.1f} MiB) "
-            f"in {t_split:.3f} s = {total / MiB / t_split:.1f} MiB/s; "
-            f"{7 * len(packs)} challenge tables in {t_tables:.3f} s; "
-            f"{6 * len(packs)} shard containers through "
-            f"ReceivedFilesWriter.sink in {t_sink:.3f} s [{card}]")
-
-        # 3. one audit round per peer: all pass
-        for i, (peer_id, _st, _k, _w) in enumerate(peers):
-            challenges, res = audit_round(i)
-            if not res.passed or res.checked != \
-                    defaults.AUDIT_SAMPLES_PER_ROUND:
-                raise AssertionError(f"peer {i} failed its audit: "
-                                     f"{res.detail}")
-            record_pass(owner, peer_id)
-        log(f"stripe: audit round 1: {len(peers)} peers, "
-            f"{defaults.AUDIT_SAMPLES_PER_ROUND} challenges each, all pass")
-
-        # 4. corrupt one window of peer 1's next challenged shard
-        bad, dark = 1, (1, 4)
-        bad_id, bad_st, _key, _w = peers[bad]
-        first_pid, _size, idx = owner.shard_placements_for_peer(bad_id)[0]
-        sid = first_pid + bytes([idx])
-        entry = tables.load(sid)[owner.get_audit_cursor(sid)]
-        target = bad_st.received_dir(owner_id) / "shard" / sid.hex()
-        raw = bytearray(target.read_bytes())
-        raw[entry.offset + entry.length // 2] ^= 0xFF
-        target.write_bytes(bytes(raw))
-        for i, (peer_id, _st, _k, _w) in enumerate(peers):
-            challenges, res = audit_round(i)
-            if i == bad:
-                if res.passed or "digest mismatch" not in res.detail:
-                    raise AssertionError("the corrupted window passed")
-                state = record_fail(owner, peer_id, res.detail)
-            elif not res.passed:
-                raise AssertionError(f"peer {i} failed round 2: {res.detail}")
-            else:
-                record_pass(owner, peer_id)
-        listed = [p.pubkey for p in owner.find_peers_with_storage()]
-        if not state.demoted or bad_id in listed or len(listed) != k + m - 1:
-            raise AssertionError("the failing peer was not demoted")
-        log(f"stripe: audit round 2: peer {bad}'s corrupted window detected "
-            f"({state.last_result[:60]}...), demoted, out of "
-            f"find_peers_with_storage ({len(listed)} peers left); the "
-            f"others pass")
-
-        # 5. peers 1 and 4 go dark: rebuild their shards from the others
-        for i in dark:
-            shutil.rmtree(peers[i][1].data_base / "received_packfiles")
-        alive = [i for i in range(k + m) if i not in dark]
-        t_rebuild = 0.0
-        calls_before = len(calls)
-        for pid, _path in packs:
-            blobs = [read_back(i, rs_stripe.shard_id(pid, i)) for i in alive]
-            t0 = time.perf_counter()
-            rebuilt = rs_stripe.rebuild_shards(blobs, list(dark), gpu)
-            t_rebuild += time.perf_counter() - t0
-            for i in dark:
-                if hashlib.sha256(rebuilt[i]).digest() != sha[pid][i]:
-                    raise AssertionError(f"rebuilt shard {i} of "
-                                         f"{pid.hex()} differs")
-        n_rebuild_calls = len(calls) - calls_before
-        log(f"stripe: rebuild of shards {list(dark)} of {len(packs)} "
-            f"stripes from shards {alive}: {t_rebuild:.3f} s = "
-            f"{total / MiB / t_rebuild:.1f} MiB/s of packfile, every rebuilt "
-            f"container byte-identical to the original [{card}]")
-
-        # 6. restore: the survivors read back into RestoreFilesWriter
-        restore = tmp / "restore"
-        writer = RestoreFilesWriter(owner, base=restore)
-        t0 = time.perf_counter()
-        for i in alive:
-            _p, st, _k, _w = peers[i]
-            for kind, fid, data in ReceivedFilesWriter(
-                    st, owner_id).iter_stored():
-                loop.run_until_complete(writer.sink(kind, fid, data))
-        t_pull = time.perf_counter() - t0
-        calls_before = len(calls)
-        t0 = time.perf_counter()
-        done, failed = rs_stripe.assemble_tree(restore / "shard",
-                                               restore / "pack", gpu)
-        t_assemble = time.perf_counter() - t0
-        n_assemble_calls = len(calls) - calls_before
-        if failed or sorted(done) != sorted(pid for pid, _p in packs):
-            raise AssertionError(f"assemble_tree failed: {failed[:3]}")
-        log(f"stripe: restore: {writer.files} shard files read back from "
-            f"{len(alive)} peers in {t_pull:.3f} s; assemble_tree "
-            f"{len(done)} packfiles in {t_assemble:.3f} s = "
-            f"{total / MiB / t_assemble:.1f} MiB/s [{card}]")
+        try:
+            asyncio.run(run())
+        except BaseException:
+            log(f"stripe: failed after {time.perf_counter() - t_phase:.1f} "
+                f"s, steps {steps}; " + transport_state())
+            raise
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t_phase
     finally:
+        p2p.Transport._ship = ship
+        p2p.blake3_many = blake3_many
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
         rs_gpu.gf_matmul = kernel
         kernel.launches += timed_gf_matmul.launches
     launches = read_counts(counters)
     k6_ms = [a.elapsed_time(b) for a, b in k6_events]
 
-    # 7. the assembled packfiles and the trees they restore
+    # 7. the assembled packfiles and the tree they restore
+    restore = out["restore"]
     for pid, path in packs:
         if packfile_path(restore / "pack", pid).read_bytes() != \
                 path.read_bytes():
             raise AssertionError(f"assembled {pid.hex()} differs")
+    # the packfiles the phase did not take restore from the local copies
+    for pid, path in sealed[len(packs):]:
+        dst = packfile_path(restore / "pack", pid)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        os.link(path, dst)
     root, tree = ctx["root"], ctx["tree"]
     dest = tmp / "restored1"
     t0 = time.perf_counter()
@@ -1983,8 +2485,9 @@ def phase_stripe(torch, rng, card, counters, ctx, device=None):
     if sorted(p.name for p in dest.iterdir()) != [tree.name]:
         raise AssertionError("the stripe restore holds more than its tree")
     log(f"stripe: snapshot 1 ({root.hex()[:16]}...) restored from the "
-        f"assembled packfiles, {n / MiB:.1f} MiB byte-identical to its tree, "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"{len(packs)} assembled packfiles and {len(sealed) - len(packs)} "
+        f"local ones, {n / MiB:.1f} MiB byte-identical to its tree, in "
+        f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(dest)
 
     # every container equal to the host oracle's
@@ -2000,13 +2503,16 @@ def phase_stripe(torch, rng, card, counters, ctx, device=None):
         f"started)")
 
     med = statistics.median(calls) * 1e3
-    log(f"stripe: phase wall {wall:.3f} s for {total / MiB:.1f} MiB; "
-        f"launches {launches}; digest_many {len(calls)} calls "
-        f"({n_split_calls} in split + tables, {n_rebuild_calls} in rebuild,"
-        f" {n_assemble_calls} in assemble, the rest in audits), "
+    log(f"stripe: phase wall {wall:.3f} s for {total / MiB:.1f} MiB ("
+        + ", ".join(f"{name} {s:.3f} s" for name, s in steps.items())
+        + f"); launches {launches}; digest_many {len(calls)} calls "
+        f"({out['n_split_calls']} in split + tables, "
+        f"{out['n_rebuild_calls']} in rebuild, {out['n_assemble_calls']} in "
+        f"assemble, the rest in audits), "
         f"{sum(calls):.3f} s in all, per call median {med:.3f} ms, mean "
         f"{sum(calls) / len(calls) * 1e3:.3f} ms, max {max(calls) * 1e3:.3f}"
-        f" ms; K6 {len(k6_ms)} launches, "
+        f" ms; " + transport_state() + "; "
+        f"K6 {len(k6_ms)} launches, "
         + (f"{sum(k6_ms):.3f} ms of device time in all (median "
            f"{statistics.median(k6_ms):.4f} ms per launch)" if k6_ms
            else "device time not measured (not on the card)")
@@ -2015,10 +2521,6 @@ def phase_stripe(torch, rng, card, counters, ctx, device=None):
         if n <= 0:
             raise AssertionError(f"kernel {name} not launched on the stripe "
                                  "path")
-    loop.close()
-    for _pid, st, _k, _w in peers:
-        st.close()
-    owner.close()
     return launches
 
 
@@ -2067,6 +2569,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     log_network_packages()
+    log_host(torch)
 
     rng = np.random.default_rng(args.seed)
     # 2. kernels vs plain at full width
@@ -2189,7 +2692,7 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         stripe_launches.update(phase_stripe(
             torch, np.random.default_rng([args.seed, 5]), card,
-            stripe_counters, ctx))
+            stripe_counters, ctx, n_packfiles=STRIPE_PACKFILES))
         stripe_secs.append(time.perf_counter() - t1)
 
     t0 = time.perf_counter()

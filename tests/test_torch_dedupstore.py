@@ -276,17 +276,31 @@ def test_cold_recovery_drops_tmp_leftovers(tmp_path):
 
 
 def test_tier_crash_sites_registered():
-    # sites register when their module imports: import every module of
-    # either package that has one
-    from backuwup_tpu.snapshot import packfile as _ref  # noqa: F401
-    from backuwup_tpu_torch.snapshot import packfile  # noqa: F401
+    """The port's crash sites are exactly these, whatever other test files
+    ran before this one in the same process: every module of either
+    package that registers one is imported here, so the registry holds
+    all of them, and the registrations in the port's sources are the
+    set below."""
+    import importlib
+    import re
 
-    sites = set(faults.crash_sites())
-    assert TIER_SITES <= sites
-    # the port registers the reference's names for the seams it has
-    assert sites == TIER_SITES | {
+    for pkg in ("backuwup_tpu", "backuwup_tpu_torch"):
+        for mod in ("dedupstore.cold", "snapshot.packfile",
+                    "snapshot.blob_index", "net.serverstore", "net.p2p"):
+            importlib.import_module(f"{pkg}.{mod}")
+    want = TIER_SITES | {
         "pack.seal.pre", "pack.seal.post", "index.save.pre",
-        "index.save.post", "challenge.save.pre", "challenge.save.post"}
+        "index.save.post", "challenge.save.pre", "challenge.save.post",
+        "partial.sink.pre", "partial.sink.post",
+        "repl.log.append.pre", "repl.log.append.post", "repl.ship.acked",
+        "repl.promote.pre", "repl.promote.post"}
+    sites = set(faults.crash_sites())
+    assert sites == want
+    port = Path(faults.__file__).resolve().parent.parent
+    found = {m for f in port.rglob("*.py") for m in re.findall(
+        r'register_crash_site\(\s*"([^"]+)"', f.read_text())}
+    assert found == want
+    # the port registers the reference's names for the seams it has
     assert sites <= set(ref_faults.crash_sites())
 
 
