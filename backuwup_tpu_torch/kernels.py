@@ -58,10 +58,10 @@ SIGNATURES = {
                               ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
                               ctypes.c_int, _P, _P, _P, _P, _P, _P, _P],
                              ctypes.c_int),
-        "bkw_dedup_migrate_round": ([_P, _P, ctypes.c_longlong,
-                                     ctypes.c_uint, _P, _P, ctypes.c_uint,
-                                     ctypes.c_longlong, ctypes.c_int, _P, _P,
-                                     _P, _P, _P], ctypes.c_int),
+        "bkw_dedup_migrate": ([_P, _P, ctypes.c_longlong, ctypes.c_uint,
+                               _P, _P, ctypes.c_uint, ctypes.c_longlong,
+                               ctypes.c_int, _P, _P, _P, _P, _P],
+                              ctypes.c_int),
     },
 }
 

@@ -21,9 +21,10 @@ table bit for bit.
 
 The device work is ``csrc/dedup_probe.cu`` (K5; it replaces an XLA
 program of the JAX package, not a Pallas kernel), through three wrappers:
-:func:`probe_table`, :func:`insert_table` and :func:`migrate_round`.  On a
-CUDA tensor each launches the kernel or raises; on a CPU tensor it runs
-its plain version.  The tables are updated in place.
+:func:`probe_table`, :func:`insert_table` and :func:`migrate_round` (a
+growth's every round, one launch).  On a CUDA tensor each launches its
+kernel or raises; on a CPU tensor it runs its plain version.  The tables
+are updated in place.
 """
 
 from __future__ import annotations
@@ -169,7 +170,11 @@ def insert_table_plain(keys: torch.Tensor, values: torch.Tensor,
 def migrate_round_plain(old_keys: torch.Tensor, old_values: torch.Tensor,
                         new_keys: torch.Tensor, new_values: torch.Tensor,
                         pending: torch.Tensor, *, max_probes: int):
-    """Plain PyTorch version of :func:`migrate_round`."""
+    """One rehash round of the pending (``pending`` (D*old_capacity,) u8,
+    updated in place) resident keys into the larger table; returns
+    ``(any still pending, exhausted)``.  One round only: the plain twin
+    of the card's whole migration, :func:`migrate_round`, is
+    :func:`migrate_plain`, which loops over this."""
     D, oc, ok = _table_geometry(old_keys)
     _D, nc, nk = _table_geometry(new_keys)
     nv = new_values.view(-1)
@@ -187,6 +192,24 @@ def migrate_round_plain(old_keys: torch.Tensor, old_values: torch.Tensor,
     won = can & (nk[g] == ok).all(dim=1)
     pending.copy_((pend & ~won).to(torch.uint8))
     return bool(pending.any()), exhausted
+
+
+def migrate_plain(old_keys: torch.Tensor, old_values: torch.Tensor,
+                  new_keys: torch.Tensor, new_values: torch.Tensor, *,
+                  max_probes: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`migrate_round`: rounds of
+    :func:`migrate_round_plain` over every resident key until nothing is
+    pending or a walk is exhausted."""
+    pending = (old_keys != 0).any(dim=2).reshape(-1).to(torch.uint8)
+    rounds = 0
+    while True:
+        more, exhausted = migrate_round_plain(
+            old_keys, old_values, new_keys, new_values, pending,
+            max_probes=max_probes)
+        rounds += 1
+        if exhausted or not more:
+            return torch.tensor([rounds, int(exhausted)], dtype=torch.int32,
+                                device=old_keys.device)
 
 
 # --- kernel wrappers ---------------------------------------------------------
@@ -218,9 +241,13 @@ def _on_card(keys: torch.Tensor) -> bool:
         return False
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    if keys.data_ptr() % 16:
-        raise ValueError("keys must be 16-byte aligned for the kernel")
+    _check_aligned(keys, "keys")
     return True
+
+
+def _check_aligned(t: torch.Tensor, what: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must be 16-byte aligned for the kernel")
 
 
 def probe_table(keys: torch.Tensor, values: torch.Tensor, q: torch.Tensor,
@@ -237,6 +264,7 @@ def probe_table(keys: torch.Tensor, values: torch.Tensor, q: torch.Tensor,
     found = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
     if q.shape[0] == 0:
         return found
+    _check_aligned(q, "queries")  # the kernel loads a row as one uint4
     lib = kernels.library("dedup_probe")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -322,49 +350,53 @@ def insert_table(keys: torch.Tensor, values: torch.Tensor, q: torch.Tensor,
 
 
 def migrate_round(old_keys: torch.Tensor, old_values: torch.Tensor,
-                  new_keys: torch.Tensor, new_values: torch.Tensor,
-                  pending: torch.Tensor, *, max_probes: int,
-                  claim: Optional[torch.Tensor] = None):
-    """One rehash round of the pending (``pending`` (D*old_capacity,) u8,
-    updated in place) resident keys into the larger table; returns
-    ``(any still pending, exhausted)`` -- the one host read per round."""
+                  new_keys: torch.Tensor, new_values: torch.Tensor, *,
+                  max_probes: int,
+                  claim: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rehash every resident key of the old table into the larger, empty
+    new one (updated in place), round after round until nothing is pending
+    or a walk is exhausted; returns ``(rounds run, exhausted)`` as a (2,)
+    int32 tensor beside the tables, without a host sync (reading it is
+    the growth's one host read).  On the card ``claim`` is the new
+    table's (D*new_capacity,) int32 claim vector, all -1 (the kernel
+    leaves it so), and the whole migration is one kernel launch.  Despite
+    the name this runs every round, not one: ``migrate_round.launches``
+    counts launches, one per growth, and the plain version is
+    :func:`migrate_plain`, not :func:`migrate_round_plain`."""
     _check_table(old_keys, old_values)
     _check_table(new_keys, new_values)
     if new_keys.shape[0] != old_keys.shape[0] \
             or new_keys.device != old_keys.device:
         raise ValueError("old and new tables must have one shard count "
                          "and one device")
-    if pending.dtype != torch.uint8 \
-            or pending.shape != (old_keys.shape[0] * old_keys.shape[1],) \
-            or pending.device != old_keys.device:
-        raise TypeError("pending must be a (D*old_capacity,) uint8 tensor "
-                        "beside the tables")
     if not _on_card(old_keys):
-        return migrate_round_plain(old_keys, old_values, new_keys, new_values,
-                                   pending, max_probes=max_probes)
-    if new_keys.data_ptr() % 16:
-        raise ValueError("keys must be 16-byte aligned for the kernel")
+        return migrate_plain(old_keys, old_values, new_keys, new_values,
+                             max_probes=max_probes)
+    _check_aligned(new_keys, "keys")
     from .. import kernels
 
+    n_old = old_keys.shape[0] * old_keys.shape[1]
     n_new = new_keys.shape[0] * new_keys.shape[1]
     if claim is None or claim.dtype != torch.int32 \
-            or claim.shape != (n_new,):
+            or claim.shape != (n_new,) or claim.device != new_keys.device:
         raise ValueError("the kernel needs the new table's claim vector")
     dev = old_keys.device
-    gslot = torch.empty(pending.shape[0], dtype=torch.int64, device=dev)
-    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    # per old slot the slot it claimed last, and two lists of the keys
+    # still pending (i32); the kernel's flags and result
+    gslot = torch.empty(n_old, dtype=torch.int32, device=dev)
+    lists = torch.empty(2 * n_old, dtype=torch.int32, device=dev)
+    ctl = torch.empty(6, dtype=torch.int32, device=dev)
     lib = kernels.library("dedup_probe")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.bkw_dedup_migrate_round(
-            old_keys.data_ptr(), old_values.data_ptr(), pending.shape[0],
+        rc = lib.bkw_dedup_migrate(
+            old_keys.data_ptr(), old_values.data_ptr(), n_old,
             old_keys.shape[1], new_keys.data_ptr(), new_values.data_ptr(),
-            new_keys.shape[1], n_new, max_probes, pending.data_ptr(),
-            gslot.data_ptr(), claim.data_ptr(), flags.data_ptr(), stream)
+            new_keys.shape[1], n_new, max_probes, gslot.data_ptr(),
+            lists.data_ptr(), claim.data_ptr(), ctl.data_ptr(), stream)
     kernels.check_launch(rc, "dedup_probe")
     migrate_round.launches += 1
-    any_pending, exhausted = flags.tolist()
-    return bool(any_pending), bool(exhausted)
+    return ctl[4:]
 
 
 probe_table.launches = 0
@@ -486,23 +518,17 @@ class ShardedDedupIndex:
     def grown(self, new_capacity: int) -> "ShardedDedupIndex":
         """Larger copy with the resident keys re-hashed on the device:
         shard routing depends only on the hash words, so every key stays
-        on its shard.  Runs migration rounds until nothing is pending (one
-        device flag read per round; growth is rare and outside any
-        batch)."""
+        on its shard.  One :func:`migrate_round` call (on the card one
+        launch) and one host read of its result; the old table is left
+        as it was."""
         if new_capacity <= self.capacity:
             raise ValueError("grown() requires a larger capacity")
         nk, nv, claim = _empty_table(self.n_shards, new_capacity, self.device)
-        pending = (self.keys != 0).any(dim=2).reshape(-1).to(torch.uint8)
-        if bool(pending.any()):
-            while True:
-                any_pending, exhausted = migrate_round(
-                    self.keys, self.values, nk, nv, pending,
-                    max_probes=self.max_probes, claim=claim)
-                if exhausted:
-                    raise DedupIndexFull("migration exhausted probes; "
-                                         "grow further")
-                if not any_pending:
-                    break
+        _rounds, exhausted = migrate_round(
+            self.keys, self.values, nk, nv, max_probes=self.max_probes,
+            claim=claim).tolist()
+        if exhausted:
+            raise DedupIndexFull("migration exhausted probes; grow further")
         return ShardedDedupIndex(
             n_shards=self.n_shards, capacity=new_capacity, keys=nk,
             values=nv, max_probes=self.max_probes, claim=claim,

@@ -18,10 +18,15 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    points; ``cuobjdump -sass`` instruction counts of K1, K3, K4 and K5;
    K5 the dedup table at a deployment's size (one 2^23-slot
    shard filled to load 0.5 by 64 insert batches, a 2^20-query probe
-   batch, a 2^21 -> 2^23 growth), every classification held against a
-   host oracle and the first and last two batches, the probe and the
-   growth against the plain version, whole tables bit-identical; each
-   insert call's time and the rounds its one kernel launch ran; K6 the
+   batch through ``ShardedDedupIndex.probe``, a 2^21 -> 2^23 growth as
+   one launch), every classification held against a host oracle and the
+   first and last two batches, the probe and the growth against the
+   plain version, whole tables bit-identical, the claim vector all -1
+   after every growth; each insert call's time and the rounds its one
+   kernel launch ran; the probe's and the growth's device time between
+   CUDA events around launches queued behind a sleep; and the cases a
+   full-size table hides (a race-heavy growth, capacities that are not
+   powers of two, eight shards, probe windows that wrap); K6 the
    GF(2^8) Reed-Solomon product: RS(4, 2) encode of 64 stripes of 4 x 4
    MiB and decode of them from survivors {2, 3, 4, 5}, odd L and L = 1,
    samples against ``gf_cpu``, and the engine's one call per 3 MiB
@@ -56,8 +61,8 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    host-only packer's, both restores byte-identical, every manifest equal
    to the oracles, no divergence, the first tree's chunks all duplicates
    (some answered by the cold tier), the hot table under the budget; and
-   a smaller history's front growing below the cap (K5's migration rounds
-   between CUDA events, held against the plain migration);
+   a smaller history's front growing below the cap (K5's migration, one
+   launch between CUDA events, held against the plain migration);
 6. the stripe phase (:func:`phase_stripe`), over the first 150 of the
    ~246 packfiles the pack phase sealed in backup 1 (~520 of ~840 MiB;
    the pack phase's manifest oracles run beside it): what the engine
@@ -537,7 +542,8 @@ def dedup_insert_bytes(n_lanes: int, n_hits: int, n_new: int,
 
 def phase_dedup(torch, rng, card):
     """K5 at a deployment's size against its plain version and a host
-    oracle; returns the JSON row (launches filled in by the caller)."""
+    oracle; returns the insert's JSON row (launches filled in by the
+    caller) and the probe's."""
     import dataclasses
 
     from backuwup_tpu_torch.ops import dedup_index as di
@@ -662,29 +668,35 @@ def phase_dedup(torch, rng, card):
     if live != int(in_table.sum()):
         raise AssertionError("table does not hold exactly the oracle's keys")
 
-    # probe batch: 2^20 queries, half resident
+    # probe batch: 2^20 queries, half resident, through the probe's entry
+    # point (host queries in, found out): its path, whose launches it counts
     n_probe = 1 << 20
     pick = rng.integers(0, n_batches * batch, n_probe // 2)
     fresh = rng.integers(1, 2**32, (n_probe // 2, 4),
                          dtype=np.uint64).astype(np.uint32)
-    pq = torch.cat([keys_d[torch.from_numpy(pick).to(dev)],
-                    torch.from_numpy(fresh.view(np.int32)).to(dev)])
-    perm = torch.from_numpy(rng.permutation(n_probe)).to(dev)
-    pq = pq[perm].contiguous()
+    perm_np = rng.permutation(n_probe)
+    pq_np = np.concatenate([keys_np[pick], fresh])[perm_np]
+    di.probe_table.launches = 0
+    got = idx.probe(pq_np).astype(np.int64)
+    probe_launches = di.probe_table.launches
+    pq = torch.from_numpy(pq_np.view(np.int32)).to(dev)
     found = idx.probe_device(pq)
     want = di.probe_table_plain(idx.keys, idx.values, pq,
                                 max_probes=idx.max_probes)
     host_want = np.concatenate([np.where(in_table[pick], stored[pick] + 1,
                                          0), np.zeros(n_probe // 2,
-                                                      np.int64)])
-    host_want = host_want[perm.cpu().numpy()]
-    got = found.cpu().numpy().view(np.uint32).astype(np.int64)
-    ok = torch.equal(found, want) and np.array_equal(got, host_want)
-    log(f"K5 probe {n_probe} (half resident, load 0.5): bit-exact vs plain "
-        f"and host oracle={ok}")
-    if not ok:
+                                                      np.int64)])[perm_np]
+    err_probe = max_abs_err(torch, [found], [want])
+    ok = err_probe == 0 and np.array_equal(got, host_want)
+    log(f"K5 probe {n_probe} (half resident, load 0.5) through "
+        f"ShardedDedupIndex.probe: {probe_launches} launch; bit-exact vs "
+        f"plain and host oracle={ok}")
+    if not ok or probe_launches != 1:
         raise AssertionError("dedup probe disagrees")
-    probe_k = cuda_ms(torch, lambda: idx.probe_device(pq))
+    probe_k = queued_ms(torch, lambda: idx.probe_device(pq))
+    probe_one = cuda_ms(torch, lambda: idx.probe_device(pq))
+    probe_dev = kernel_device_ms(
+        torch, [lambda: idx.probe_device(pq)] * 3, "probe_kernel")
     probe_host = []  # the host's enqueue of a probe call: one plain launch
     for _ in range(7):
         torch.cuda.synchronize()
@@ -696,13 +708,30 @@ def phase_dedup(torch, rng, card):
     hit, miss = probe_steps(0.5)
     probe_bytes = (16 * n_probe + SECTOR * n_probe / 2 * (hit + miss)
                    + SECTOR * n_probe / 2 + 4 * n_probe)
-    probe_b, _ = bound_ms(probe_bytes, 0)
-    log(f"K5 probe time: kernel {probe_k:.4f} ms, plain {probe_p:.4f} ms, "
-        f"bound {probe_b:.4f} ms (bytes; {hit:.2f} steps per hit, "
-        f"{miss:.2f} per miss at load 0.5) [{card}]")
+    probe_b, probe_by = bound_ms(probe_bytes, 0)
+    log(f"K5 probe time: kernel {probe_k:.4f} ms per call of 20 queued "
+        f"back to back ({probe_b / probe_k:.1%} of bound; target <= "
+        f"{2 * probe_b:.4f} ms, half the bound: "
+        f"{'reached' if probe_k <= 2 * probe_b else 'missed'}); CUDA events "
+        f"around one call {probe_one:.4f} ms; profiler device time "
+        + (f"{probe_dev:.4f} ms" if probe_dev is not None else "not measured")
+        + f"; host enqueue median {statistics.median(probe_host):.4f} ms; "
+        f"plain {probe_p:.4f} ms, bound {probe_b:.4f} ms (bytes; {hit:.2f} "
+        f"steps per hit, {miss:.2f} per miss at load 0.5) [{card}]")
+    probe_row = {
+        "name": "dedup_probe_table", "route": "cuda",
+        "source": "backuwup_tpu_torch/csrc/dedup_probe.cu",
+        "replaces": "backuwup_tpu/ops/dedup_index.py:233 (local_probe of an "
+                    "XLA program on the TPU, not a Pallas kernel)",
+        "launches": probe_launches, "max_abs_err": err_probe, "ms": probe_k,
+        "plain_ms": probe_p, "bound_ms": probe_b, "bound_by": probe_by,
+        "library_ms": None}
+    log("library_ms: null for dedup_probe_table -- no PyTorch call computes "
+        "a hash-table probe")
     del idx, pq, found, want
+    dedup_small_cases(torch, rng, card)
 
-    # growth: 2^21 slots at load 0.5 -> 2^23, kernel vs plain migration
+    # growth: 2^21 slots at load 0.5 -> 2^23, one migration launch
     small = di.ShardedDedupIndex.create(1, capacity=1 << 21, device=dev)
     placed = 0
     for s0 in range(0, 1 << 20, batch):
@@ -712,32 +741,20 @@ def phase_dedup(torch, rng, card):
         placed += batch - int((lost == di.LOST_EXHAUSTED).sum())
     if int((small.keys != 0).any(dim=2).sum()) != placed:
         raise AssertionError("growth table lost keys")
+    grow_ms, rounds, grow_plain = migrate_vs_plain(torch, small, 1 << 23)
     torch.cuda.synchronize()
-    r0 = di.migrate_round.launches
     t0 = time.perf_counter()
     grown = small.grown(1 << 23)
     torch.cuda.synchronize()
     grow_s = time.perf_counter() - t0
-    rounds = di.migrate_round.launches - r0
-    nk = torch.zeros_like(grown.keys)
-    nv = torch.zeros_like(grown.values)
-    pending = (small.keys != 0).any(dim=2).reshape(-1).to(torch.uint8)
-    while True:
-        more, exhausted = di.migrate_round_plain(
-            small.keys, small.values, nk, nv, pending,
-            max_probes=small.max_probes)
-        if exhausted:
-            raise AssertionError("plain migration exhausted")
-        if not more:
-            break
-    ok = torch.equal(grown.keys, nk) and torch.equal(grown.values, nv)
     log(f"K5 grown 2^21 -> 2^23 ({placed} keys, load "
-        f"{placed / (1 << 21):.4f}): {rounds} migration rounds, "
-        f"{grow_s * 1e3:.1f} ms host wall, table bit-exact vs plain={ok} "
-        f"[{card}]")
-    if not ok:
-        raise AssertionError("dedup migration disagrees")
-    del small, grown, nk, nv, keys_d
+        f"{placed / (1 << 21):.4f}): one migration launch of {rounds} "
+        f"rounds, {grow_ms:.4f} ms between CUDA events (median of 5), "
+        f"plain {grow_plain:.1f} ms; "
+        f"grown() {grow_s * 1e3:.1f} ms host wall (the new table's zero "
+        f"fill and one host read included); table bit-exact vs plain, "
+        f"claim vector all -1 [{card}]")
+    del small, grown, keys_d
 
     k5_ms, n_lanes, alpha, k5_host, k5_dev, k5_pad = last
     n_hits = rep
@@ -760,34 +777,184 @@ def phase_dedup(torch, rng, card):
         + (f"{k5_pad:.4f} ms" if k5_pad is not None else "not measured")
         + f" [{card}]")
     log("library_ms: null for dedup_probe -- no PyTorch call computes a "
-        "hash-table probe/insert")
+        "hash-table insert")
     return {"name": "dedup_probe", "route": "cuda",
             "source": "backuwup_tpu_torch/csrc/dedup_probe.cu",
             "replaces": "backuwup_tpu/ops/dedup_index.py:227 (XLA program "
                         "on the TPU, not a Pallas kernel)",
             "max_abs_err": err5, "ms": k5_ms, "plain_ms": plain_ms[-1],
-            "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None}
+            "bound_ms": k5_bound, "bound_by": k5_by,
+            "library_ms": None}, probe_row
 
 
 def insert_device_ms(torch, fresh, q, v, reps: int = 3):
     """Device time of one insert kernel (``insert_rounds_kernel``), from
     the profiler over ``reps`` inserts of ``q``/``v`` into ``fresh()``
     tables; None when the profiler reports no device time."""
+    tables = [fresh() for _ in range(reps)]
+    return kernel_device_ms(torch, [lambda t=t: t.insert_device(q, v)
+                                    for t in tables], "insert_rounds_kernel")
+
+
+def kernel_device_ms(torch, calls, kernel: str):
+    """Mean device time in ms of the kernels named ``kernel`` that the
+    ``calls`` launch, from the profiler; None when it reports none."""
     from torch.profiler import ProfilerActivity, profile
 
-    tables = [fresh() for _ in range(reps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for t in tables:
-            t.insert_device(q, v)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
     total, count = 0.0, 0
     for e in prof.key_averages():
-        if "insert_rounds_kernel" in e.key:
+        if kernel in e.key:
             total += float(getattr(e, "self_device_time_total", 0.0)
                            or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
             count += e.count
     return total / count / 1e3 if count and total > 0 else None
+
+
+SLEEP_CYCLES = 20_000_000  # ~10 ms of torch.cuda._sleep at the SM clock
+
+
+def queued_ms(torch, fn, reps: int = 7, count: int = 20, prep=None) -> float:
+    """Median device time of ``fn`` in ms per call: CUDA events around
+    ``count`` calls that the host enqueued while the device slept
+    (``torch.cuda._sleep``), so a wrapper's host time drops out even when
+    its kernel is shorter than its enqueue.  ``prep`` runs before each
+    repetition, outside the events (e.g. to empty a table).  Raises if
+    the host took longer to enqueue than the device slept."""
+    fn()
+    times = []
+    for _ in range(reps):
+        if prep is not None:
+            prep()
+        torch.cuda.synchronize()
+        slept = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        slept.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(count):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        end.synchronize()
+        if host_ms >= slept.elapsed_time(start):
+            raise AssertionError("the enqueue outlasted the device's sleep")
+        times.append(start.elapsed_time(end) / count)
+    return statistics.median(times)
+
+
+def migrate_vs_plain(torch, idx, new_cap: int, reps: int = 5):
+    """K5's migration of ``idx`` into an empty table of ``new_cap`` slots
+    per shard, each call one launch (checked by the count), and the plain
+    migration of the same table: the new tables and (rounds, exhausted)
+    equal, the claim vector all -1 after every launch.  Returns (median
+    ms of one launch between CUDA events, rounds, plain ms)."""
+    from backuwup_tpu_torch.ops import dedup_index as di
+
+    nk, nv, claim = di._empty_table(idx.n_shards, new_cap, idx.device)
+    results = []
+
+    def launch():
+        results.append(di.migrate_round(idx.keys, idx.values, nk, nv,
+                                        max_probes=idx.max_probes,
+                                        claim=claim))
+
+    def empty():
+        nk.zero_()
+        nv.zero_()
+
+    before = di.migrate_round.launches
+    ms = queued_ms(torch, launch, reps=reps, count=1, prep=empty)
+    got = [r.tolist() for r in results]
+    pk, pv = torch.zeros_like(nk), torch.zeros_like(nv)
+    torch.cuda.synchronize()
+    p0 = time.perf_counter()
+    want = di.migrate_plain(idx.keys, idx.values, pk, pv,
+                            max_probes=idx.max_probes).tolist()
+    plain_ms = (time.perf_counter() - p0) * 1e3
+    if di.migrate_round.launches - before != len(got) \
+            or any(g != want for g in got) \
+            or not (torch.equal(nk, pk) and torch.equal(nv, pv)) \
+            or not bool((claim == -1).all()):
+        raise AssertionError("dedup migration disagrees with its plain "
+                             "version")
+    return ms, want[0], plain_ms
+
+
+def dedup_small_cases(torch, rng, card):
+    """K5's growth and probe in the cases a table at full size hides, each
+    kernel bit-exact against its plain version: a race-heavy growth (64
+    keys of one shard share their first slot in both tables, so each round
+    places one), growths to and from capacities that are not powers of
+    two, eight shards, and probes whose windows wrap at the end of the
+    shard (runs of keys from its last slots, shards smaller than a probe
+    group), with padding rows and stored values of 0xFFFFFFFF."""
+    import dataclasses
+
+    from backuwup_tpu_torch.ops import dedup_index as di
+
+    dev = torch.device("cuda")
+
+    def filled(d, cap, load, run_len, run_mod, run_start):
+        n = int(load * d * cap)
+        q = rng.integers(1, 2**32, (n + run_len, 4),
+                         dtype=np.uint64).astype(np.uint32)
+        # the other keys spread over the shards in turn, so none fills up
+        q[:, 0] = q[:, 0] // d * d + np.arange(len(q)) % d
+        run = q[:run_len]  # one shard's keys on one first slot
+        run[:, 0] = run[:, 0] // d * d + 3 % d
+        run[:, 1] = run[:, 1] // run_mod * run_mod + run_start
+        v = rng.integers(0, 2**32, len(q), dtype=np.uint64).astype(np.uint32)
+        v[::3] = 0xFFFFFFFF
+        idx = di.ShardedDedupIndex.create(d, capacity=cap, max_probes=128,
+                                          device=dev)
+        idx.insert(q, v)
+        return idx, q
+
+    for label, d, cap, new_cap, racing in (
+            ("race-heavy", 1, 1 << 20, 1 << 22, 64),
+            ("non-power-of-two", 1, 1_000_000, 2_500_000, 0),
+            ("D = 8", 8, 1 << 17, 1 << 19, 0),
+            ("D = 8, non-power-of-two, race-heavy", 8, 3000, 7001, 16)):
+        idx, _q = filled(d, cap, 0.45, racing, int(np.lcm(cap, new_cap)),
+                         200)
+        ms, rounds, plain_ms = migrate_vs_plain(torch, idx, new_cap, reps=3)
+        log(f"K5 growth, {label}: {d} x {cap} -> {d} x {new_cap} slots, one "
+            f"launch of {rounds} rounds, {ms:.4f} ms (plain {plain_ms:.1f} "
+            f"ms); bit-exact vs plain, claim vector all -1 [{card}]")
+        if rounds < racing:
+            raise AssertionError("the race-heavy growth ran too few rounds")
+        del idx
+
+    for d, cap in ((8, 1000), (1, 5), (8, 3)):
+        idx, q = filled(d, cap, 0.4, min(12, cap // 2), cap, cap - 1)
+        unseen = rng.integers(1, 2**32, (64, 4),
+                              dtype=np.uint64).astype(np.uint32)
+        unseen[:8, 0] = unseen[:8, 0] // d * d + 3 % d
+        unseen[:8, 1] = unseen[:8, 1] // cap * cap + cap - 1
+        probe = np.vstack([q, np.zeros((5, 4), dtype=np.uint32), unseen])
+        probe_d = torch.from_numpy(probe.view(np.int32)).to(dev)
+        for max_probes in (5, 33):
+            view = dataclasses.replace(idx, max_probes=max_probes)
+            calls = di.probe_table.launches
+            got = view.probe_device(probe_d)
+            want = di.probe_table_plain(idx.keys, idx.values, probe_d,
+                                        max_probes=max_probes)
+            if di.probe_table.launches != calls + 1 \
+                    or not torch.equal(got, want):
+                raise AssertionError(f"dedup probe disagrees ({d} x {cap} "
+                                     f"slots, max_probes {max_probes})")
+        log(f"K5 probe, windows that wrap: {d} x {cap} slots, {len(probe)} "
+            f"queries (a run of keys from the last slot, padding rows, "
+            f"values 0xFFFFFFFF) at max_probes 5 and 33: bit-exact vs plain "
+            f"[{card}]")
+        del idx
 
 
 def log_sass(build_dir, libs) -> None:
@@ -1312,10 +1479,9 @@ def grow_front(torch, rng, tmp: Path, spec, device, card, counters):
     authority holds ``growth_authority`` digests, the front starts at the
     capacity they ask for, and fresh fingerprints through
     ``classify_insert`` fill it until ``_grow`` migrates it 4x on the
-    device (K5's migration rounds, each between CUDA events).  The grown
+    device (K5's migration, one launch between CUDA events).  The grown
     table is held against the plain migration of the same old table.
-    Returns (ms of the growth, rounds, plain ms, max_abs_err, bound ms,
-    launches, old capacity, keys placed)."""
+    Returns the ``dedup_migrate`` JSON row."""
     from backuwup_tpu_torch.crypto import KeyManager
     from backuwup_tpu_torch.dedupstore import TieredDedupIndex
     from backuwup_tpu_torch.ops import dedup_index as di
@@ -1328,59 +1494,65 @@ def grow_front(torch, rng, tmp: Path, spec, device, card, counters):
                              device=device, cold_dir=tmp / "cold",
                              hbm_budget_bytes=spec["budget"])
     cap0 = front.capacity
-    rounds_ms, record = [], {}
-    grown, round_fn = di.ShardedDedupIndex.grown, di.migrate_round
+    launch_ms, results, record = [], [], {}
+    grown, migrate = di.ShardedDedupIndex.grown, di.migrate_round
 
-    def stamp():
+    def timed_migrate(*args, **kw):
+        # the growth's one launch between CUDA events, queued behind a
+        # sleep so that the wrapper's host time drops out (on the CPU the
+        # host's clock around the plain migration); raises, as queued_ms
+        # does, if the host took longer to enqueue than the device slept
         if not cuda:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def elapsed(a, b):
-        if not cuda:
-            return (b - a) * 1e3
-        b.synchronize()
-        return a.elapsed_time(b)
-
-    def timed_round(*args, **kw):
-        t0 = stamp()
-        out = round_fn(*args, **kw)
-        rounds_ms.append(elapsed(t0, stamp()))
-        return out
+            t0 = time.perf_counter()
+            results.append(migrate(*args, **kw))
+            launch_ms.append((time.perf_counter() - t0) * 1e3)
+            return results[-1]
+        torch.cuda.synchronize()
+        slept = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        slept.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        results.append(migrate(*args, **kw))
+        end.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        end.synchronize()
+        if host_ms >= slept.elapsed_time(start):
+            raise AssertionError("the enqueue outlasted the device's sleep")
+        launch_ms.append(start.elapsed_time(end))
+        return results[-1]
 
     def checked_grown(self, new_capacity):
         old_k, old_v = self.keys.clone(), self.values.clone()
         # the wrapper stands in for the module's migrate_round, whose
         # launch count (``migrate_round.launches += 1``) it then carries
-        timed_round.launches = round_fn.launches
-        di.migrate_round = timed_round
+        timed_migrate.launches = migrate.launches
+        di.migrate_round = timed_migrate
         try:
             out = grown(self, new_capacity)
         finally:
-            di.migrate_round = round_fn
-            round_fn.launches = timed_round.launches
+            di.migrate_round = migrate
+            migrate.launches = timed_migrate.launches
         nk, nv = torch.zeros_like(out.keys), torch.zeros_like(out.values)
-        pending = (old_k != 0).any(dim=2).reshape(-1).to(torch.uint8)
         if cuda:
             torch.cuda.synchronize()
         p0 = time.perf_counter()
-        while True:
-            more, exhausted = di.migrate_round_plain(
-                old_k, old_v, nk, nv, pending, max_probes=self.max_probes)
-            if exhausted:
-                raise AssertionError("plain migration exhausted")
-            if not more:
-                break
+        want = di.migrate_plain(old_k, old_v, nk, nv,
+                                max_probes=self.max_probes).tolist()
         if cuda:
             torch.cuda.synchronize()
+        if want != results[-1].tolist() or want[1]:
+            raise AssertionError("the plain migration differs or exhausted")
+        claim_ok = out.claim is None or bool((out.claim == -1).all())
         record.update(plain_ms=(time.perf_counter() - p0) * 1e3,
                       err=max_abs_err(torch, [out.keys.view(-1),
                                               out.values.view(-1)],
                                       [nk.view(-1), nv.view(-1)]),
                       placed=int((old_k != 0).any(dim=2).sum()),
-                      old_cap=self.capacity, new_cap=new_capacity)
+                      old_cap=self.capacity, new_cap=new_capacity,
+                      rounds=want[0], claim_ok=claim_ok)
         return out
 
     zero_counts(counters)
@@ -1399,24 +1571,27 @@ def grow_front(torch, rng, tmp: Path, spec, device, card, counters):
     finally:
         di.ShardedDedupIndex.grown = grown
     launches, inserts = di.migrate_round.launches, di.insert_table.launches
-    if launches <= 0 or launches != len(rounds_ms) or record["err"]:
-        raise AssertionError("the growth did not run K5's migration rounds "
-                             "bit-exact against the plain version")
+    if len(launch_ms) != 1 or (cuda and launches != 1) or record["err"] \
+            or not record["claim_ok"]:
+        raise AssertionError("the growth did not run K5's migration as one "
+                             "launch bit-exact against the plain version")
     placed, old_cap = record["placed"], record["old_cap"]
     alpha = placed / record["new_cap"]
     _hit, miss = probe_steps(alpha)
     bound, by = bound_ms(20 * old_cap + SECTOR * placed * (1 + miss), 0)
-    ms = sum(rounds_ms)
+    ms = launch_ms[0]
     log(f"pack: growth below the cap: a front over {spec['growth_authority']}"
         f" digests starts at {cap0} slots ({front.hbm_budget_bytes} B "
         f"budget); after {fed} fresh fingerprints _grow migrated "
         f"{placed} keys {old_cap} -> {record['new_cap']} slots in {launches}"
-        f" K5 migration rounds ({inserts} K5 insert launches in all): "
-        f"{ms:.4f} ms (rounds "
-        f"{[round(t, 4) for t in rounds_ms]}), plain {record['plain_ms']:.4f}"
-        f" ms, bound {bound:.4f} ms ({by}: old table read, a 32 B sector per"
-        f" key placed and {miss:.3f} probe steps per key at the new load "
-        f"{alpha:.4f}); bit-exact vs plain [{card}]")
+        f" K5 migration launch of {record['rounds']} rounds ({inserts} K5 "
+        f"insert launches in all): {ms:.4f} ms between CUDA events "
+        f"({bound / ms:.1%} of bound; target 0.05-0.15 ms: "
+        f"{'reached' if ms <= 0.15 else 'missed'}), plain "
+        f"{record['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}: old table"
+        f" read, a 32 B sector per key placed and {miss:.3f} probe steps per"
+        f" key at the new load {alpha:.4f}); bit-exact vs plain, claim vector"
+        f" all -1 [{card}]")
     return {"name": "dedup_migrate", "route": "cuda",
             "source": "backuwup_tpu_torch/csrc/dedup_probe.cu",
             "replaces": "backuwup_tpu/ops/dedup_index.py:354 (XLA program "
@@ -2583,7 +2758,7 @@ def main(argv=None) -> int:
     rows += phase_gear_ladder(torch, rng_k, card)
     mark("K3/K4 phase")
     torch.cuda.empty_cache()
-    dedup_row = phase_dedup(torch, rng_k, card)
+    dedup_row, probe_row = phase_dedup(torch, rng_k, card)
     mark("K5 phase")
     torch.cuda.empty_cache()
     gf_row = phase_gf(torch, np.random.default_rng([args.seed, 4]), card)
@@ -2626,7 +2801,7 @@ def main(argv=None) -> int:
                                 "main path, CDCParams() 256K/1M/3M", card,
                                 (main_out, main_mib_s))
     dedup_row["launches"] = classified["dedup_probe"]
-    rows.append(dedup_row)
+    rows += [dedup_row, probe_row]
     # unclassified again, after the classified passes: the first run also
     # warmed the allocator and the pinned pool
     run_main(torch, backend, corpus, manifest_counters,

@@ -7,6 +7,8 @@ JAX it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -212,7 +214,6 @@ def test_ladder_kernel_valid_boundaries_match_plain(blocks):
 
 
 def _clone(idx):
-    import dataclasses
     return dataclasses.replace(idx, keys=idx.keys.clone(),
                                values=idx.values.clone())
 
@@ -253,18 +254,16 @@ def test_dedup_kernel_matches_plain_under_races():
     probe = torch.cat([q_d, torch.from_numpy(pre.view(np.int32)).cuda()])
     assert torch.equal(idx.probe_device(probe), dedup_index.probe_table_plain(
         idx.keys, idx.values, probe, max_probes=idx.max_probes))
+    before = dedup_index.migrate_round.launches
     grown = idx.grown(4 * cap)
-    pending = (idx.keys != 0).any(dim=2).reshape(-1).to(torch.uint8)
+    assert dedup_index.migrate_round.launches == before + 1
     nk = torch.zeros_like(grown.keys)
     nv = torch.zeros_like(grown.values)
-    while True:
-        more, exhausted = dedup_index.migrate_round_plain(
-            idx.keys, idx.values, nk, nv, pending,
-            max_probes=idx.max_probes)
-        assert not exhausted
-        if not more:
-            break
+    rounds, exhausted = dedup_index.migrate_plain(
+        idx.keys, idx.values, nk, nv, max_probes=idx.max_probes).tolist()
+    assert not exhausted
     assert torch.equal(grown.keys, nk) and torch.equal(grown.values, nv)
+    assert torch.equal(grown.claim, torch.full_like(grown.claim, -1))
 
 
 @pytest.mark.cuda
@@ -306,6 +305,138 @@ def test_dedup_insert_rounds_match_plain(racing):
     assert int((lost == dedup_index.LOST_RACE).sum()) \
         == max(racing + 1 - len(races), 0)
     assert torch.equal(idx.claim, torch.full_like(idx.claim, -1))
+
+
+def _run_keys(rng, n, d, cap, start):
+    """``n`` distinct keys of shard ``3 % d`` whose first slot in a table
+    of ``cap`` slots is ``start``."""
+    q = rng.integers(1, 2**32, (n, 4), dtype=np.uint64).astype(np.uint32)
+    q[:, 0] = q[:, 0] // d * d + 3 % d
+    q[:, 1] = (q[:, 1] // cap) * cap + start
+    return q
+
+
+def _migrate_both(idx, new_cap):
+    """The kernel's migration (one launch) and the plain one of the same
+    old table; returns the kernel's (rounds, exhausted), having checked
+    the new tables bit-identical and the claim vector all -1."""
+    d = idx.n_shards
+    nk = torch.zeros((d, new_cap, 4), dtype=torch.int32, device="cuda")
+    nv = torch.zeros((d, new_cap), dtype=torch.int32, device="cuda")
+    claim = torch.full((d * new_cap,), -1, dtype=torch.int32, device="cuda")
+    pk, pv = nk.clone(), nv.clone()
+    before = dedup_index.migrate_round.launches
+    got = dedup_index.migrate_round(idx.keys, idx.values, nk, nv,
+                                    max_probes=idx.max_probes,
+                                    claim=claim).tolist()
+    assert dedup_index.migrate_round.launches == before + 1
+    want = dedup_index.migrate_plain(idx.keys, idx.values, pk, pv,
+                                     max_probes=idx.max_probes).tolist()
+    assert got == want
+    assert torch.equal(nk, pk) and torch.equal(nv, pv)
+    assert torch.equal(claim, torch.full_like(claim, -1))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, cap, new_cap", [(1, 4096, 16384),
+                                             (8, 512, 2048),
+                                             (1, 1000, 2500),
+                                             (8, 1000, 1001)])
+def test_dedup_migration_matches_plain(d, cap, new_cap):
+    """A race-heavy growth: 48 keys of one shard share their first slot
+    in the old and the new table, beside keys at load ~0.4, so every
+    round places one of them (48 rounds); on 1 and 8 shards, at
+    capacities that are and are not powers of two.  One launch per
+    growth, tables bit-identical to the plain migration's, the claim
+    vector all -1 after it; ``grown()`` gives the same tables."""
+    _needs_card()
+    rng = np.random.default_rng(d * 7 + cap)
+    idx = dedup_index.ShardedDedupIndex.create(d, capacity=cap,
+                                               max_probes=128)
+    run = _run_keys(rng, 48, d, int(np.lcm(cap, new_cap)), 200)
+    rest = rng.integers(1, 2**32, (d * cap * 4 // 10, 4),
+                        dtype=np.uint64).astype(np.uint32)
+    q = np.vstack([run, rest])
+    idx.insert(q, np.arange(len(q), dtype=np.uint32) + 11)
+    rounds, exhausted = _migrate_both(idx, new_cap)
+    assert rounds >= 48 and not exhausted
+    before = dedup_index.migrate_round.launches
+    grown = idx.grown(new_cap)
+    assert dedup_index.migrate_round.launches == before + 1
+    assert torch.equal(grown.claim, torch.full_like(grown.claim, -1))
+    q_d = torch.from_numpy(q.view(np.int32)).cuda()
+    assert torch.equal(grown.probe_device(q_d),
+                       torch.arange(len(q), dtype=torch.int32,
+                                    device="cuda") + 12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8])
+def test_dedup_migration_exhausted_raises(d):
+    """Walks cut to one slot cannot place a run of keys that share a
+    first slot: the kernel reports exhaustion as the plain migration
+    does, with the same partial table; ``grown()`` raises DedupIndexFull
+    and leaves the old table intact."""
+    _needs_card()
+    rng = np.random.default_rng(70 + d)
+    idx = dedup_index.ShardedDedupIndex.create(d, capacity=64,
+                                               max_probes=64)
+    q = np.vstack([_run_keys(rng, 8, d, 64 * 65, 5),
+                   rng.integers(1, 2**32, (20 * d, 4),
+                                dtype=np.uint64).astype(np.uint32)])
+    idx.insert(q, np.arange(len(q), dtype=np.uint32))
+    small = dataclasses.replace(idx, max_probes=1)
+    rounds, exhausted = _migrate_both(small, 65)
+    assert exhausted == 1 and rounds >= 1
+    keys0, vals0 = idx.keys.clone(), idx.values.clone()
+    before = dedup_index.migrate_round.launches
+    with pytest.raises(dedup_index.DedupIndexFull):
+        small.grown(65)
+    assert dedup_index.migrate_round.launches == before + 1
+    assert torch.equal(idx.keys, keys0) and torch.equal(idx.values, vals0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 3, 5, 64, 1000])
+@pytest.mark.parametrize("d", [1, 8])
+def test_dedup_probe_windows_wrap(d, cap):
+    """Probe groups whose windows wrap at the end of the shard (runs of
+    keys from the shard's last slots; shards smaller than a group), with
+    padding rows, unseen keys on the run's first slot and stored values
+    of 0xFFFFFFFF (found wraps to 0), at max_probes 1, 5, 33 and 64: the
+    kernel equals the plain probe, one launch a call."""
+    _needs_card()
+    rng = np.random.default_rng(80 + cap + d)
+    idx = dedup_index.ShardedDedupIndex.create(d, capacity=cap,
+                                               max_probes=cap + 8)
+    n_run = max(1, min(12, cap - 1))
+    run = _run_keys(rng, n_run, d, cap, cap - 1)
+    rest = rng.integers(1, 2**32, (d * cap // 4, 4),
+                        dtype=np.uint64).astype(np.uint32)
+    rest[:, 0] = np.arange(len(rest))  # one per shard in turn: none full
+    q = np.vstack([run, rest])
+    vals = np.arange(len(q), dtype=np.uint32)
+    vals[::3] = 0xFFFFFFFF
+    idx.insert(q, vals)
+    probe = np.vstack([q, np.zeros((5, 4), dtype=np.uint32),
+                       _run_keys(rng, 6, d, cap, cap - 1),
+                       rng.integers(1, 2**32, (100, 4),
+                                    dtype=np.uint64).astype(np.uint32)])
+    probe_d = torch.from_numpy(probe.view(np.int32)).cuda()
+    for max_probes in (1, 5, 33, 64):
+        view = dataclasses.replace(idx, max_probes=max_probes)
+        before = dedup_index.probe_table.launches
+        got = view.probe_device(probe_d)
+        assert dedup_index.probe_table.launches == before + 1
+        want = dedup_index.probe_table_plain(idx.keys, idx.values, probe_d,
+                                             max_probes=max_probes)
+        assert torch.equal(got, want), max_probes
+    assert int((got[len(q):len(q) + 5] != 0).sum()) == 0
+    with pytest.raises(ValueError):  # the kernel loads rows as uint4
+        dedup_index.probe_table(idx.keys, idx.values,
+                                probe_d.view(-1)[1:-3].view(-1, 4),
+                                max_probes=8)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,8 @@ against the JAX table on a mesh of as many devices.  Tolerance 0: ``found``,
 what makes the layouts match.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -254,6 +256,185 @@ def test_grown_migration_exhaustion_raises():
     small = port.ShardedDedupIndex(1, 64, p.keys, p.values, max_probes=1)
     with pytest.raises(port.DedupIndexFull):
         small.grown(65)
+
+
+def _one_shard_keys(rng, n, d, cap, start):
+    """``n`` distinct random keys of shard ``3 % d`` whose first slot in a
+    table of ``cap`` slots is ``start``."""
+    q = rng.integers(1, 2**32, (n, 4), dtype=np.uint64).astype(np.uint32)
+    q[:, 0] = q[:, 0] // d * d + 3 % d
+    q[:, 1] = (q[:, 1] // cap) * cap + start
+    return q
+
+
+@pytest.mark.parametrize("d", SHARDS)
+def test_grown_race_heavy_matches_reference(meshes, d):
+    """48 keys of one shard share their first slot in the old table and in
+    the new one (200 of 256 and of 1024), beside keys elsewhere: every
+    migration round places one of them, the highest old slot first, so
+    the growth runs 48 rounds; the layouts match the JAX table's."""
+    p, r = _pair(meshes, d, 256, max_probes=128)
+    rng = np.random.default_rng(60)
+    q = np.vstack([_one_shard_keys(rng, 48, d, 1024, 200),
+                   port.hashes_to_queries(_hashes(60, seed=61))])
+    vals = np.arange(len(q), dtype=np.uint32) + 7
+    _insert_both(p, r, q, vals)
+    nk = torch.zeros((d, 1024, 4), dtype=torch.int32)
+    nv = torch.zeros((d, 1024), dtype=torch.int32)
+    rounds, exhausted = port.migrate_round(
+        p.keys.clone(), p.values.clone(), nk, nv,
+        max_probes=p.max_probes).tolist()
+    assert rounds == 48 and exhausted == 0
+    p2, r2 = p.grown(1024), r.grown(1024)
+    _same_layout(p2, r2)
+    assert torch.equal(p2.keys, nk) and torch.equal(p2.values, nv)
+    assert np.array_equal(p2.probe(q), vals + 1)
+    assert np.array_equal(p2.probe(q), r2.probe(q))
+
+
+@pytest.mark.parametrize("old_cap, new_cap", [(64, 100), (100, 250),
+                                              (96, 128), (250, 1000)])
+@pytest.mark.parametrize("d", SHARDS)
+def test_grown_to_and_from_other_capacities(meshes, d, old_cap, new_cap):
+    """Growths to and from capacities that are not powers of two, at load
+    ~0.45 per shard: layouts, found and a probe of unseen keys match."""
+    p, r = _pair(meshes, d, old_cap, max_probes=64)
+    n = old_cap * d * 45 // 100
+    q = port.hashes_to_queries(_hashes(n, seed=old_cap))
+    _insert_both(p, r, q, np.arange(n, dtype=np.uint32))
+    p2, r2 = p.grown(new_cap), r.grown(new_cap)
+    assert p2.capacity == new_cap
+    _same_layout(p2, r2)
+    both = np.vstack([q, port.hashes_to_queries(_hashes(n, seed=7 + n))])
+    got = p2.probe(both)
+    assert np.array_equal(got, r2.probe(both))
+    assert np.array_equal(got[:n], np.arange(n, dtype=np.uint32) + 1)
+    assert not got[n:].any()
+
+
+@pytest.mark.parametrize("d", SHARDS)
+def test_grown_spans_many_probe_windows(meshes, d):
+    """4,096 keys at load 0.5 grow 2x per shard (each shard's table spans
+    many probe windows), then a probe of the keys and as many unseen."""
+    cap = 8192 // d
+    p, r = _pair(meshes, d, cap)
+    q = port.hashes_to_queries(_hashes(4096, seed=62))
+    vals = np.arange(4096, dtype=np.uint32) * 3
+    _insert_both(p, r, q, vals)
+    p2, r2 = p.grown(2 * cap), r.grown(2 * cap)
+    _same_layout(p2, r2)
+    both = np.vstack([q, port.hashes_to_queries(_hashes(4096, seed=63))])
+    got = p2.probe(both)
+    assert np.array_equal(got, r2.probe(both))
+    assert np.array_equal(got[:4096], vals + 1) and not got[4096:].any()
+
+
+@pytest.mark.parametrize("d", SHARDS)
+def test_grown_exhaustion_matches_reference(meshes, d):
+    """A growth whose walks are cut to one slot cannot place every key:
+    both packages raise DedupIndexFull and keep the old table as it was."""
+    p, r = _pair(meshes, d, 64, max_probes=64)
+    q = np.vstack([_one_shard_keys(np.random.default_rng(64), 8, d, 65, 5),
+                   port.hashes_to_queries(_hashes(40, seed=65))])
+    _insert_both(p, r, q, np.arange(len(q), dtype=np.uint32))
+    keys0, vals0 = p.keys.clone(), p.values.clone()
+    with pytest.raises(port.DedupIndexFull):
+        dataclasses.replace(p, max_probes=1).grown(65)
+    with pytest.raises(ref.DedupIndexFull):
+        dataclasses.replace(r, max_probes=1).grown(65)
+    assert torch.equal(p.keys, keys0) and torch.equal(p.values, vals0)
+    _same_layout(p, r)
+
+
+@pytest.mark.parametrize("max_probes", [5, 33])
+@pytest.mark.parametrize("d", SHARDS)
+def test_probe_windows_wrap_at_the_shard_end(meshes, d, max_probes):
+    """A run of 12 keys from the shard's third-last slot wraps to its
+    start; probes of them, of unseen keys on the same first slot, of
+    padding rows and of a key whose value is 0xFFFFFFFF (found 0) walk
+    windows that wrap, with ``max_probes`` no multiple of a probe group."""
+    cap = 64
+    p, r = _pair(meshes, d, cap, max_probes=64)
+    rng = np.random.default_rng(66 + max_probes)
+    run = _one_shard_keys(rng, 12, d, cap, cap - 3)
+    other = port.hashes_to_queries(_hashes(20, seed=67))
+    vals = np.arange(32, dtype=np.uint32) + 100
+    vals[5] = 0xFFFFFFFF
+    _insert_both(p, r, np.vstack([run, other]), vals)
+    unseen = _one_shard_keys(rng, 6, d, cap, cap - 3)
+    q = np.vstack([run, np.zeros((3, 4), dtype=np.uint32), unseen, other])
+    pm = dataclasses.replace(p, max_probes=max_probes)
+    rm = dataclasses.replace(r, max_probes=max_probes)
+    got = pm.probe(q)
+    assert np.array_equal(got, rm.probe(q))
+    assert got[5] == 0 and not got[12:21].any()
+    reached = np.flatnonzero(got[:12])
+    assert np.array_equal(got[reached], vals[reached] + 1)
+    # 33 slots reach the whole run; 5 slots hold at most 5 of its keys
+    assert len(reached) == 11 if max_probes == 33 else len(reached) <= 5
+
+
+def _group_probe_model(keys, vals, q, group, align, max_probes):
+    """numpy model of the group probe's addressing (``probe_kernel`` is
+    ``group`` 4 without ``align``; ``scripts/torch_k5_variants.cu`` holds
+    the others): lane g of a query's group holds walk position p = g - off
+    (off = the start slot's place in its ``group``-aligned block of the
+    whole table when ``align``, else 0; lanes with p < 0 take no part),
+    each window advances p by ``group``, slots wrap at the end of the
+    shard, and the lowest lane of the window's terminal ballot (lanes past
+    ``max_probes`` masked off) ends the walk."""
+    D, cap = keys.shape[:2]
+    found = np.zeros(len(q), dtype=np.uint32)
+    for i, key in enumerate(q):
+        if not key.any():
+            continue
+        s, start = int(key[0]) % D, int(key[1]) % cap
+        off = (s * cap + start) % group if align else 0
+        for p0 in range(-off, max_probes, group):
+            pos = [p0 + g for g in range(group)]
+            slots = [keys[s, (start + p) % cap] if p >= 0 else None
+                     for p in pos]
+            term = [0 <= p < max_probes and (
+                (k == key).all() or not k.any())
+                for p, k in zip(pos, slots)]
+            if any(term):
+                p = pos[term.index(True)]
+                if (keys[s, (start + p) % cap] == key).all():
+                    v = int(vals[s, (start + p) % cap])
+                    found[i] = np.uint32((v + 1) % 2**32)
+                break
+    return found
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("group", [4, 8])
+@pytest.mark.parametrize("cap", [1, 3, 5, 8, 63, 64])
+def test_probe_group_model_matches_plain(group, align, cap):
+    """The group walk of the probe kernel and its trial variants (windows
+    aligned in memory or from the start slot, wrap, ballot order, the
+    ``max_probes`` mask) finds what the plain probe finds, on shards
+    smaller and larger than a group, with runs that wrap."""
+    rng = np.random.default_rng(cap * 10 + group)
+    D = 2
+    idx = port.ShardedDedupIndex.create(D, capacity=cap, max_probes=cap + 8,
+                                        device="cpu")
+    n = max(1, D * cap * 3 // 4)
+    q = rng.integers(1, 2**32, (n, 4), dtype=np.uint64).astype(np.uint32)
+    q[: n // 2, 1] = (q[: n // 2, 1] // cap) * cap + cap - 1
+    vals = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    vals[0] = 0xFFFFFFFF
+    idx.insert(q, vals)
+    probe = np.vstack([q, np.zeros((2, 4), dtype=np.uint32),
+                       rng.integers(1, 2**32, (n, 4),
+                                    dtype=np.uint64).astype(np.uint32)])
+    keys = idx.keys.numpy().view(np.uint32)
+    tab = idx.values.numpy().view(np.uint32)
+    for max_probes in (1, 3, 4, 5, 33):
+        want = port.probe_table_plain(
+            idx.keys, idx.values, torch.from_numpy(probe.view(np.int32)),
+            max_probes=max_probes).numpy().view(np.uint32)
+        got = _group_probe_model(keys, tab, probe, group, align, max_probes)
+        assert np.array_equal(got, want), max_probes
 
 
 def test_hashes_to_queries_edge_rows():
