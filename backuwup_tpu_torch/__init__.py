@@ -3,9 +3,11 @@
 Content-defined chunking, BLAKE3 fingerprinting and dedup classification
 of backup streams on an NVIDIA H100, the packer and packfiles around
 them, the Reed-Solomon stripes, audits and shard storage each sealed
-packfile goes through, and the network plane the stripes travel over
-(coordination server, client control plane, signed P2P transport),
-bit-identical to the JAX package
+packfile goes through, the network plane the stripes travel over
+(coordination server, client control plane, signed P2P transport), and
+the backup engine that runs them from a directory to peers and back
+(``engine.Engine``: backup, send loop, audits, repair, GC, restore and
+the startup recovery sweep), bit-identical to the JAX package
 (``backuwup_tpu``), which stays beside it as the reference.  The port
 imports ``torch``, never ``jax``, and nothing of ``backuwup_tpu``.  Entry
 points run on CUDA unless the caller passes ``device="cpu"``, which

@@ -251,3 +251,23 @@ REPL_PROBE_FAILURES = 2
 AUTH_CHALLENGE_TTL_S = 30.0
 SESSION_TTL_S = 24 * 3600.0
 P2P_REQUEST_TTL_S = 60.0
+
+# --- the engine's send loop, restore and GC (backuwup_tpu/defaults.py:37-38,
+# :43-44, :88, :106, :143, :322) ---------------------------------------------
+# pause packing past this many unsent local packfile bytes; resume once
+# this much of the buffer is free again (reference defaults.rs:38,59)
+PACKFILE_LOCAL_BUFFER_LIMIT = 100 * MiB
+PACKFILE_RESUME_THRESHOLD = 50 * MiB
+# storage request sizing: estimate - fulfilled, clamped to [step, cap]
+# (decimal MB, like the reference send.rs:359-369)
+STORAGE_REQUEST_STEP = 50 * 1000 * 1000
+STORAGE_REQUEST_CAP = 150 * 1000 * 1000
+# distinct peers the whole-packfile path fans out to per send tick
+TRANSFER_MAX_PEERS = 4
+# missed-wakeup backstop of the event-driven send loop
+SEND_WAKEUP_BACKSTOP_S = 0.5
+# a restore pull running this fraction of its adaptive deadline is hedged
+# by a redundant pull of a spare shard
+RESTORE_HEDGE_DEADLINE_FRACTION = 0.5
+# GC re-packs a packfile whose live-byte fraction drops below this
+GC_COMPACT_OCCUPANCY = 0.5

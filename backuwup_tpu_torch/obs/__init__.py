@@ -10,7 +10,8 @@ plane and the network plane write to:
 * :mod:`~backuwup_tpu_torch.obs.journal` -- the size-rotated JSONL event
   journal;
 * :mod:`~backuwup_tpu_torch.obs.profile` -- the dispatch and tiered-dedup
-  counters;
+  counters, the per-backup pipeline and overlap reports and the device
+  timer;
 * :mod:`~backuwup_tpu_torch.obs.invariants` -- the durability invariant
   monitor, whose ``bkw_durability_*`` facts ``/healthz`` reads;
 * :mod:`~backuwup_tpu_torch.obs.slo` and
@@ -18,7 +19,9 @@ plane and the network plane write to:
   ``/metrics`` + ``/healthz`` exposition of the coordination server,
   imported where they are used, as in the reference.
 
-No module here imports ``torch``; ``expo`` imports ``aiohttp``.
+No module here imports ``torch`` when it is imported (``trace.device_profiler``
+and ``profile.dev_time`` import it when called); ``expo`` imports
+``aiohttp``.
 """
 
 from . import invariants, journal, metrics, profile, trace

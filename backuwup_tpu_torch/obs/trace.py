@@ -1,7 +1,8 @@
 """Hierarchical spans with Dapper-style trace/span ids.
 
-Counterpart of ``backuwup_tpu/obs/trace.py`` without its
-``jax_profiler`` hook (the port's device profiling is a later slice).
+Counterpart of ``backuwup_tpu/obs/trace.py``.  Its ``jax_profiler`` hook
+is :func:`device_profiler` here: the same ``BKW_TRACE_DIR`` gate, a
+``torch.profiler`` Chrome trace in place of a JAX profile.
 
 Subsumes :mod:`backuwup_tpu_torch.utils.tracing` (which remains as thin
 wrappers over this module): the flat ``{name: (calls, total_s)}``
@@ -206,3 +207,27 @@ def format_report() -> str:
     for name, (calls, total) in rows:
         out.append(f"{name:<{width}}  {calls:>6}x  {total * 1e3:>10.1f} ms")
     return "\n".join(out)
+
+
+@contextlib.contextmanager
+def device_profiler(section: str = "trace") -> Iterator[None]:
+    """Capture a device profile into ``$BKW_TRACE_DIR/<section>`` when the
+    env var is set; no-op (zero overhead) otherwise.
+
+    The profile is a ``torch.profiler`` Chrome trace,
+    ``<section>/trace.json``: host ops, and the CUDA kernels when the
+    device is a GPU."""
+    trace_dir = os.environ.get("BKW_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    out = os.path.join(trace_dir, section)
+    os.makedirs(out, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))

@@ -16,6 +16,10 @@ then ``dedup.classify_insert``) on the base class, and on
 :class:`GpuBackend` one pass that hands each batch's digests to the
 device dedup table mid-manifest.
 
+The host path of the base class records the reference's dispatch
+accounting (``obs/profile.py``: scan, select, gather, digest, index);
+the device pipeline of :class:`GpuBackend` records none yet.
+
 ``encode_shards`` / ``decode_shards`` are the Reed-Solomon product of the
 erasure stripes (``erasure/``): the numpy oracle on the base class (so
 :class:`CpuBackend` has them), the device product
@@ -30,6 +34,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from ..erasure import gf_cpu, rs_gpu
+from ..obs import profile as obs_profile
 from .blake3_cpu import blake3_many
 from .blake3_gpu import blake3_many_gpu
 from .cdc_cpu import chunk_stream as chunk_stream_cpu
@@ -80,13 +85,30 @@ class ChunkerBackend:
         return np.stack([gf_cpu.gf_matmul(rec, s) for s in stripes])
 
     def manifest_many(self, streams: Sequence[bytes]) -> List[List[ChunkRef]]:
-        """Chunk + fingerprint a batch of streams."""
+        """Chunk + fingerprint a batch of streams in one pipeline pass.
+
+        Dispatch accounting (obs/profile.py, exact on the host path, as in
+        the reference): one scan + one select per stream, one gather per
+        stream that produced chunks, one batched digest per call with
+        pieces."""
         all_chunks = []  # (stream_idx, offset, length)
         pieces = []
         for i, data in enumerate(streams):
+            n = len(data)
+            obs_profile.dispatch("scan", actual_bytes=n, padded_bytes=n)
+            obs_profile.dispatch("select", actual_bytes=n, padded_bytes=n)
+            gathered = 0
             for off, ln in self.chunk(data):
                 all_chunks.append((i, off, ln))
                 pieces.append(bytes(data[off:off + ln]))
+                gathered += ln
+            if gathered:
+                obs_profile.dispatch("gather", actual_bytes=gathered,
+                                     padded_bytes=gathered)
+        if pieces:
+            total = sum(len(p) for p in pieces)
+            obs_profile.dispatch("digest", actual_bytes=total,
+                                 padded_bytes=total)
         digests = self.digest_many(pieces)
         out: List[List[ChunkRef]] = [[] for _ in streams]
         for (i, off, ln), h in zip(all_chunks, digests):
@@ -105,8 +127,11 @@ class ChunkerBackend:
         ``dedup.classify_insert``; :class:`GpuBackend` overrides it with
         the on-device handoff."""
         out = self.manifest_many(streams)
-        return out, dedup.classify_insert([r.hash for refs in out
-                                           for r in refs])
+        hashes = [r.hash for refs in out for r in refs]
+        if hashes:
+            obs_profile.dispatch("index", actual_bytes=32 * len(hashes),
+                                 padded_bytes=32 * len(hashes))
+        return out, dedup.classify_insert(hashes)
 
     def manifest_stream(self, read: Callable[[int], bytes],
                         segment_bytes: int = 256 * 1024 * 1024,
@@ -127,6 +152,10 @@ class ChunkerBackend:
             eof = not segment
             buf = carry + segment
             chunks = self.chunk(buf)
+            obs_profile.dispatch("scan", actual_bytes=len(buf),
+                                 padded_bytes=len(buf))
+            obs_profile.dispatch("select", actual_bytes=len(buf),
+                                 padded_bytes=len(buf))
             if eof:
                 final, carry, next_base = chunks, b"", base
             elif len(chunks) > 1:
@@ -137,6 +166,12 @@ class ChunkerBackend:
                 # single chunk that may still grow: carry everything
                 final, carry, next_base = [], buf, base
             pieces = [buf[off:off + ln] for off, ln in final]
+            if pieces:
+                total = sum(len(p) for p in pieces)
+                obs_profile.dispatch("gather", actual_bytes=total,
+                                     padded_bytes=total)
+                obs_profile.dispatch("digest", actual_bytes=total,
+                                     padded_bytes=total)
             for h, (off, ln), data in zip(self.digest_many(pieces), final,
                                           pieces):
                 ref = ChunkRef(offset=base + off, length=ln, hash=h)

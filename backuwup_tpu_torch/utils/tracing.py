@@ -13,6 +13,8 @@ call sites (and external scripts) keep working unchanged:
   ``{name: (calls, total_s)}`` aggregate table, still gated on
   ``BKW_TRACE=1`` / :func:`enable` exactly as before (the id/histogram/
   journal mechanics run regardless of the gate);
+* ``device_profiler`` — the ``BKW_TRACE_DIR`` device-trace hook (the
+  reference's ``jax_profiler``, here a ``torch.profiler`` trace).
 
 New code should import :mod:`backuwup_tpu_torch.obs.trace` directly.
 """
@@ -24,6 +26,7 @@ from ..obs.trace import (  # noqa: F401  (re-exported API)
     current,
     current_span_id,
     current_trace_id,
+    device_profiler,
     enable,
     enabled,
     format_report,
@@ -36,7 +39,8 @@ from ..obs.trace import (  # noqa: F401  (re-exported API)
 )
 
 __all__ = [
-    "bind", "current", "current_span_id", "current_trace_id", "enable",
+    "bind", "current", "current_span_id", "current_trace_id",
+    "device_profiler", "enable",
     "enabled", "format_report", "new_span_id",
     "new_trace_id", "report", "reset", "span", "traced",
 ]

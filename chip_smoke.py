@@ -55,17 +55,17 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    user's size: a ``BlobIndex`` authority of 6,000,000 synthetic digests,
    the ``TieredDedupIndex`` on the card at the default budget (hot table
    at its 2^23-slot cap, the rest in the cold store), ``DirPacker`` over
-   ``GpuBackend`` backing up a ~1.1 GiB tree, a recency shift of at least
-   2,000,000 fresh fingerprints that demotes the tree's, then an
-   incremental backup with ~0.4 GiB more; each root equal to the
+   ``GpuBackend`` backing up a ~0.7 GiB tree, a recency shift of at
+   least 2,000,000 fresh fingerprints that demotes the tree's, then an
+   incremental backup with ~0.2 GiB more; each root equal to the
    host-only packer's, both restores byte-identical, every manifest equal
    to the oracles, no divergence, the first tree's chunks all duplicates
    (some answered by the cold tier), the hot table under the budget; and
    a smaller history's front growing below the cap (K5's migration, one
    launch between CUDA events, held against the plain migration);
-6. the stripe phase (:func:`phase_stripe`), over the first 150 of the
-   ~246 packfiles the pack phase sealed in backup 1 (~520 of ~840 MiB;
-   the pack phase's manifest oracles run beside it): what the engine
+6. the stripe phase (:func:`phase_stripe`), over the first 20 of the
+   packfiles the pack phase sealed in backup 1 (~60 MiB; the pack
+   phase's manifest oracles run beside it): what the engine
    does to their bytes, over the port's
    network plane -- its ``CoordinationServer`` on ``127.0.0.1`` and eight
    clients (an owner and seven holders, each its own identity, store,
@@ -82,7 +82,16 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    snapshot 1 restored from them (and local copies of the rest)
    byte-identical, every container equal to the host oracle's; K2/K6 launches, ``digest_many`` calls and their
    time, MiB/s of split, delivery, pulls, rebuild and assemble, audit
-   round trips, the server's ``/healthz`` and counters.
+   round trips, the server's ``/healthz`` and counters;
+7. the engine phase (:func:`phase_engine`): ``Engine`` itself, over the
+   same network plane with an owner and seven holders, backs up a seeded
+   tree of ~54 MiB (K1, K2, K5's insert, K6), passes an audit
+   round, catches a corrupted window, repairs two dark holders onto the
+   seventh, backs up ~21 MiB more as duplicates plus new packfiles, and
+   restores onto a fresh store; roots against ``DirPacker`` over
+   ``CpuBackend``, every stored container against the host oracle, the
+   restored tree byte-identical; every kernel's launches in the phase go
+   into its row's ``engine_launches``.
 
 The build phase also logs the versions of ``aiohttp``, ``websockets`` and
 ``cryptography``, which the network plane imports.
@@ -141,8 +150,13 @@ COPY_BYTES = 640 * MiB
 SECTOR = 32  # bytes of one DRAM sector: the unit of a random access
 
 
+_T0 = [time.perf_counter()]  # the script's start (main resets it)
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, stamped with the seconds since the
+    script started: the time between two lines is the work between them."""
+    print(f"[{time.perf_counter() - _T0[0]:.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(torch, fn, reps: int = 7, warm: int = 2, count: int = 1) -> float:
@@ -1193,7 +1207,10 @@ def breakdown(torch, run, streams, label, card):
     """Device time by kernel over one profiled call ``run(streams)``: the
     hand-written kernels, copies, and the plain torch ops around them,
     with the device's busy share of the call's wall time; returns the
-    device events per group (None when the profiler reported none)."""
+    device events per group (None when the profiler reported none).  The
+    host's activity is recorded too: with the device's alone, some of a
+    call's kernels went missing from the trace, or came in from the call
+    before it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1302,7 +1319,7 @@ def oracle_manifests(streams, params, workers: int):
 # A real user's size: an authority of 6,000,000 blobs (an earlier history of
 # ~6 TB at the default 1 MiB chunk), the tiered front at the default budget
 # (its hot table starts at the 2^23-slot cap), and two backups of a tree on
-# local disk, ~1.5 GiB in all.  Between them ``shift`` fresh fingerprints
+# local disk, ~0.9 GiB in all.  Between them ``shift`` fresh fingerprints
 # (at least; see ``recency_shift``) push the first tree's out of the
 # recency window.  A smaller history (2^19 blobs) shows the front growing
 # below the cap, which is where K5's migration runs.  The tree: 96 MiB
@@ -1323,16 +1340,16 @@ PACK_SPEC = {
     "tiny": 256 * 1024,
     "stream_block": 8 * MiB,
     "stream_blocks": 33,
-    "A": {"big": 3, "multi": 100, "tiny": 1000, "repeats": 10, "stream": 1},
-    "B": {"big": 1, "multi": 60, "tiny": 600, "repeats": 5, "stream": 0},
+    "A": {"big": 1, "multi": 50, "tiny": 500, "repeats": 10, "stream": 1},
+    "B": {"big": 1, "multi": 30, "tiny": 300, "repeats": 5, "stream": 0},
 }
 
 # the packfiles of backup 1 the stripe phase ships, audits, rebuilds and
-# restores over the network, of ~246; snapshot 1 restores the rest from
-# their local copies.  The transport moves ~9-10 MiB/s a leg (every shard
-# over TRANSFER_CHUNK_BYTES costs a host BLAKE3 on each side), and all of
-# them would take the script past 1,000 s (PERF.md §4)
-STRIPE_PACKFILES = 150
+# restores over the network; snapshot 1 restores the rest from
+# their local copies.  The phase took ~2.7-2.9 s a packfile on the card's
+# host (PERF.md §5): 20 of them, ~55 s, keep the whole script near half its
+# time limit (PERF.md §4); the phase keeps every check
+STRIPE_PACKFILES = 20
 
 
 def write_tree(rng, root: Path, counts, spec) -> int:
@@ -1601,13 +1618,18 @@ def grow_front(torch, rng, tmp: Path, spec, device, card, counters):
             "bound_by": by, "library_ms": None}
 
 
-def recency_shift(rng, front, index, a_chunks, spec, card):
+def recency_shift(rng, front, index, a_chunks, spec, card, a_device=None):
     """Fresh fingerprints through ``classify_insert``, each marked in the
     authority, in blocks, until at least ``spec['shift']`` went through
     and the first tree's chunks have left the hot table (demoted): a
     demotion keeps the newest quarter of the table, so the shift must
-    outnumber it after the first tree's last touch."""
+    outnumber it after the first tree's last touch.  With ``a_device``
+    (the chunks the device path classifies: not the tiny files', which go
+    to the host authority) one of those must be among the demoted, so that
+    the next backup can find it in the cold tier."""
     a_keys = {h[:16] for h in a_chunks}
+    dev_keys = {h[:16] for h in (a_chunks if a_device is None
+                                 else a_device)}
     fresh, checked, t0 = 0, -1.0, time.perf_counter()
     hot_a = len(a_keys)
     while True:
@@ -1626,14 +1648,16 @@ def recency_shift(rng, front, index, a_chunks, spec, card):
             le = np.ascontiguousarray(keys.astype("<u4")).tobytes()
             hot = {le[16 * i:16 * i + 16] for i in range(len(keys))}
             hot_a = len(a_keys & hot)
-            if hot_a < len(a_keys):
+            if dev_keys - hot:
                 break
         if fresh >= 6 * spec["shift"]:
             raise AssertionError("the first tree never left the hot table")
     log(f"pack: recency shift: {fresh} fresh fingerprints through "
         f"classify_insert in {time.perf_counter() - t0:.1f} s; demotions so "
         f"far {int(metric('bkw_tier_demotions_total'))} keys; of the first "
-        f"tree's {len(a_keys)} chunk keys {hot_a} still hot; hot table "
+        f"tree's {len(a_keys)} chunk keys {hot_a} still hot ("
+        f"{len(dev_keys - hot)} of the {len(dev_keys)} its device path "
+        f"classifies demoted); hot table "
         f"{front.hbm_table_bytes} B, cold store {len(front.cold)} records in "
         f"{front.cold.run_count} runs [{card}]")
     return fresh
@@ -1691,6 +1715,7 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None,
         f"{'on' if packfile.durable.FSYNC_ENABLED else 'off'}; seal workers "
         f"{defaults.PACK_SEAL_WORKERS}")
     tmp = Path(tempfile.mkdtemp(prefix="bkw_pack_"))
+    oracles = ThreadPoolExecutor(1)  # backup 2's manifest oracles
     try:
         migrate_row = grow_front(torch, rng, tmp / "growth", spec, device,
                                  card, counters)
@@ -1744,10 +1769,19 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None,
             f"{time.perf_counter() - t0:.1f} s")
         host_idx = BlobIndex(keys, tmp / "host" / "index")
         results, sealed = [], []  # sealed: each backup's new packfiles
+        # backup 2's manifest oracles start when its timed run ends, and
+        # run beside the host-only repeat, the restores and ``after``: on
+        # all but four cores with ``after`` to run (the stripe phase's
+        # event loop, its device thread and its own two oracle workers keep
+        # those); they need only the tree
+        workers = min(8, os.cpu_count() or 1)
+        if after is not None:
+            workers = max(1, workers - 4)
         for label, size in (("backup 1 (A)", size_a), ("backup 2 (A+B)", 0)):
             if results:
                 # between the backups: the recency shift, then tree B
-                recency_shift(rng, front, index, a_chunks, spec, card)
+                recency_shift(rng, front, index, a_chunks, spec, card,
+                              a_device)
                 t0 = time.perf_counter()
                 size_b = write_tree(rng, src / "B", spec["B"], spec)
                 size = size_a + size_b
@@ -1765,6 +1799,13 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None,
             launches = read_counts(counters)
             k5 = (di.insert_table.launches, di.probe_table.launches,
                   di.migrate_round.launches)
+            if results:
+                rels = sorted(f.relative_to(src).as_posix()
+                              for f in src.rglob("*") if f.is_file())
+                streams = [(src / rel).read_bytes() for rel in rels]
+                t_oracles = time.perf_counter()
+                pending = oracles.submit(oracle_manifests, streams,
+                                         backend.params, workers)
             host_root, _hs, _w, _a, host_secs = run_backup(
                 sync, src, tmp / "host", keys, host_idx, None, backend,
                 spec["batch_bytes"])
@@ -1813,6 +1854,10 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None,
                                  - sealed_before))
             if len(results) == 1:
                 a_chunks = {h for hs in files.values() for h in hs}
+                # tiny streams (one chunk, <= min_size) go to the host
+                # authority, so their keys never reach the cold tier
+                a_device = {h for path, hs in files.items()
+                            if "/tiny/" not in f"/{path}" for h in hs}
                 n_a_chunks = sum(map(len, files.values()))
         (root1, files1, dirs1, _s1, _a1, _c1), \
             (root2, files2, dirs2, stats2, added2, cold2) = results
@@ -1855,34 +1900,26 @@ def phase_pack(torch, rng, card, counters, spec=PACK_SPEC, device=None,
             log(f"pack: restore {k + 1}: {n / MiB:.1f} MiB byte-identical to "
                 f"the source tree, restored in {secs:.1f} s")
             shutil.rmtree(dest)
-        rels = sorted(files2)
-        streams = [(src / rel).read_bytes() for rel in rels]
-        # with ``after`` to run, the oracles run beside it, on all but four
-        # cores (the stripe phase's event loop, its device thread and its
-        # own two oracle workers keep those): they need only the streams
-        workers = min(8, os.cpu_count() or 1)
         if after is not None:
-            workers = max(1, workers - 4)
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(1) as bg:
-            pending = bg.submit(oracle_manifests, streams, backend.params,
-                                workers)
-            if after is not None:
-                after({"tmp": tmp, "keys": keys, "index": index,
-                       "pack_dir": tmp / "repo" / "pack",
-                       "packfiles": sealed[0], "root": root1,
-                       "tree": src / "A"})
-            want = pending.result()
+            after({"tmp": tmp, "keys": keys, "index": index,
+                   "pack_dir": tmp / "repo" / "pack",
+                   "packfiles": sealed[0], "root": root1,
+                   "tree": src / "A"})
+        want = pending.result()
+        if rels != sorted(files2):
+            raise AssertionError("snapshot 2 does not list the tree's files")
         for rel, w in zip(rels, want):
             if [h for _o, _n, h in w] != files2[rel]:
                 raise AssertionError(f"{rel}: manifest differs from the oracle")
         log(f"pack: oracle parity: {len(rels)} files, "
             f"{sum(map(len, streams)) / MiB:.1f} MiB, every manifest of "
             f"backup 2 equal to cdc_cpu + blake3_cpu (oracles on {workers} "
-            f"processes, done {time.perf_counter() - t0:.1f} s after they "
-            f"started{' beside the stripe phase' if after else ''})")
+            f"processes, done {time.perf_counter() - t_oracles:.1f} s after "
+            f"they started at the end of backup 2's timed run"
+            f"{', beside the stripe phase' if after else ''})")
         return migrate_row
     finally:
+        oracles.shutdown(cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1962,10 +1999,10 @@ def phase_stripe(torch, rng, card, counters, ctx, device=None,
 
     Every container is held equal to the host oracle's (``CpuBackend``, in
     worker processes).  The phase takes the first ``n_packfiles`` (all
-    when None) of the pack phase's backup 1 (~840 MiB in 246), which
-    restore snapshot 1 alone: all of them without the network took 303.5
-    s on an NVIDIA H100 80GB HBM3 at 700.00 W, ~2,964 ``digest_many``
-    calls at ~88 ms each (PERF.md §5).  Returns the K2/K6 launches of the
+    when None) of the pack phase's backup 1, which restore snapshot 1
+    alone: all 246 of a 1.1 GiB tree without the network took 303.5 s on
+    an NVIDIA H100 80GB HBM3 at 700.00 W, ~2,964 ``digest_many`` calls at
+    ~88 ms each (PERF.md §5).  Returns the K2/K6 launches of the
     phase."""
     import asyncio
     import gc
@@ -2699,6 +2736,832 @@ def phase_stripe(torch, rng, card, counters, ctx, device=None,
     return launches
 
 
+# the engine phase (phase 7): the user's tree (PACK_SPEC's file mix, its
+# big file 32 MiB), its growth before backup 2, and the holders.  A tree of
+# 260.7 MiB took backup 1 alone 424 s on the card's host, the engine at 0.6
+# MiB/s end to end with every holder's transfers on one host (PERF.md §6),
+# and the whole script with a 106.6 MiB tree once ran past its 1,200 s
+# limit: the tree is ~54 MiB, its growth ~21 MiB
+ENGINE_SPEC = dict(
+    PACK_SPEC,
+    big=32 * MiB,
+    tree={"big": 1, "multi": 4, "tiny": 150, "repeats": 3, "stream": 0},
+    tree_bytes=48 * MiB,
+    add={"big": 0, "multi": 3, "tiny": 60, "repeats": 0, "stream": 0},
+    add_bytes=16 * MiB,
+    touch=4,
+)
+
+
+def grow_tree(rng, root: Path, counts, spec, at_least: int) -> int:
+    """:func:`write_tree` under ``root``, then multi-row files under
+    ``root/more`` until the files written hold ``at_least`` bytes."""
+    total = write_tree(rng, root, counts, spec)
+    lo, hi = spec["multi"]
+    k = 0
+    while total < at_least:
+        n = int(np.exp(rng.uniform(np.log(lo + 1), np.log(hi))))
+        p = root / "more" / f"m{k:03d}.bin"
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(rng.bytes(n))
+        total += n
+        k += 1
+    return total
+
+
+def _host_root(tree, secret, work):
+    """The snapshot root of ``tree`` as ``DirPacker`` over ``CpuBackend``
+    with a fresh index makes it under the keys of ``secret`` (the host
+    oracle of the engine phase; run in a worker process)."""
+    import shutil
+
+    from backuwup_tpu_torch import defaults
+    from backuwup_tpu_torch.crypto import KeyManager
+    from backuwup_tpu_torch.ops.backend import CpuBackend
+    from backuwup_tpu_torch.snapshot.blob_index import BlobIndex
+    from backuwup_tpu_torch.snapshot.packer import DirPacker
+    from backuwup_tpu_torch.snapshot.packfile import PackfileWriter
+
+    keys = KeyManager.from_secret(secret)
+    work = Path(work)
+    index = BlobIndex(keys, work / "index")
+    writer = PackfileWriter(
+        keys, work / "pack",
+        on_packfile=lambda pid, path, hashes, size:
+        index.finalize_packfile(pid, hashes),
+        seal_workers=defaults.PACK_SEAL_WORKERS)
+    t0 = time.perf_counter()
+    try:
+        root = DirPacker(CpuBackend(), writer, index).pack(Path(tree))
+    finally:
+        writer.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    return root, time.perf_counter() - t0
+
+
+class EngineClient:
+    """One client of the engine phase on its own machine, wired as
+    ``ClientApp`` wires it: identity, store, control-plane client and P2P
+    node.  A holder (``prover`` given) stores what a matched peer sends
+    and serves its restores, fetches, reclaims and audits (``serve_audit``
+    on ``prover``)."""
+
+    def __init__(self, root: Path, name, secret, obf_key, addr,
+                 prover=None):
+        from backuwup_tpu_torch.crypto import KeyManager
+        from backuwup_tpu_torch.net.client import ServerClient
+        from backuwup_tpu_torch.net.p2p import (P2PNode,
+                                                ReceivedFilesWriter,
+                                                Receiver)
+        from backuwup_tpu_torch.store import Store
+
+        self.name = name
+        self.keys = KeyManager.from_secret(secret)
+        self.id = self.keys.client_id
+        self.store = Store(root / name / "cfg", data_base=root / name / "data")
+        self.store.set_obfuscation_key(obf_key)
+        self.client = ServerClient(self.keys, self.store, addr=addr,
+                                   tls=False)
+        self.node = P2PNode(self.keys, self.store, self.client)
+        self.client.on_backup_matched = self.matched
+        if prover is not None:
+            node = self.node
+
+            async def accept(source, transport):
+                w = ReceivedFilesWriter(self.store, source)
+                await Receiver(transport, w.sink, part_sink=w.sink_part,
+                               resume_query=w.resume_offer).run()
+
+            async def audit(source, transport):
+                await node.serve_audit(source, transport, prover)
+
+            node.on_transport_request = accept
+            node.on_restore_request = node.serve_restore
+            node.on_restore_fetch_request = node.serve_restore_fetch
+            node.on_reclaim_request = node.serve_reclaim
+            node.on_audit_request = audit
+
+    async def matched(self, msg):
+        self.store.add_peer_negotiated(msg.destination_id,
+                                       msg.storage_available)
+
+    async def join(self):
+        import asyncio
+
+        await self.client.register()
+        await self.client.login()
+        self.client.start_ws()
+        await asyncio.wait_for(self.client.ws_connected.wait(), 30)
+
+    def stored(self, owner_id):
+        """{file id: (kind, sha256)} of what this holder stores for
+        ``owner_id``, de-obfuscated."""
+        import hashlib
+
+        from backuwup_tpu_torch.net.p2p import ReceivedFilesWriter
+
+        return {bytes(fid): (int(kind), hashlib.sha256(data).digest())
+                for kind, fid, data in
+                ReceivedFilesWriter(self.store, owner_id).iter_stored()}
+
+
+def _holders_main(conn, root, secrets, obf_keys, device):
+    """The coordination server and the holders of the engine phase, in a
+    process of their own (started with ``spawn``; it imports only the
+    port).  Serves the phase's requests over ``conn`` until ``stop``:
+    ``request`` (holders ask the server for storage), ``knows`` (whether
+    each holder recorded its match with a peer), ``corrupt`` (flip one
+    byte of a stored file), ``dark`` (a holder leaves the network),
+    ``stored`` (:meth:`EngineClient.stored`), ``served`` (when a holder
+    last streamed a peer its whole store, ``RESTORE_ALL``), ``launches``
+    (K2's launches in this process: the holders' ``serve_audit``)."""
+    import asyncio
+
+    from backuwup_tpu_torch.net.server import CoordinationServer
+    from backuwup_tpu_torch.ops import blake3_gpu
+    from backuwup_tpu_torch.ops.backend import GpuBackend
+
+    root = Path(root)
+
+    async def main():
+        (root / "server").mkdir(parents=True)
+        server = CoordinationServer(db_path=root / "server" / "server.db")
+        port = await server.start(host="127.0.0.1", port=0)
+        addr = f"127.0.0.1:{port}"
+        prover = GpuBackend(device=device)
+        holders = [EngineClient(root, f"peer{i}", s, o, addr, prover)
+                   for i, (s, o) in enumerate(zip(secrets, obf_keys))]
+        try:
+            for h in holders:
+                await h.join()
+            conn.send(("ready", port))
+            loop = asyncio.get_running_loop()
+            while True:
+                cmd, *args = await loop.run_in_executor(None, conn.recv)
+                if cmd == "stop":
+                    break
+                try:
+                    if cmd == "request":
+                        idx, grant = args
+                        for i in idx:
+                            await holders[i].client.backup_storage_request(
+                                grant)
+                        out = None
+                    elif cmd == "knows":
+                        idx, peer = args
+                        out = all(holders[i].store.get_peer(peer)
+                                  is not None for i in idx)
+                    elif cmd == "corrupt":
+                        i, owner, sub, name, offset = args
+                        p = holders[i].store.received_dir(owner) / sub / name
+                        raw = bytearray(p.read_bytes())
+                        raw[offset] ^= 0xFF
+                        p.write_bytes(bytes(raw))
+                        out = None
+                    elif cmd == "dark":
+                        await holders[args[0]].client.close()
+                        out = None
+                    elif cmd == "stored":
+                        out = await asyncio.to_thread(
+                            holders[args[0]].stored, args[1])
+                    elif cmd == "served":
+                        times = [h.store.last_event_time(
+                            f"restore_served:{bytes(args[0]).hex()}")
+                            for h in holders]
+                        out = max((t for t in times if t is not None),
+                                  default=None)
+                    elif cmd == "launches":
+                        out = blake3_gpu.leaf_scan.launches
+                    else:
+                        raise ValueError(f"unknown request {cmd!r}")
+                    conn.send(("ok", out))
+                except Exception as e:  # the phase raises it in its turn
+                    conn.send(("error", f"{cmd}: {e!r}"))
+        finally:
+            # together: a holder's close can wait out its transports'
+            # closing handshakes
+            t0 = time.perf_counter()
+            await asyncio.gather(*(h.client.close() for h in holders))
+            for h in holders:
+                h.store.close()
+            t1 = time.perf_counter()
+            await server.stop()
+            print(f"holders' process: clients closed in {t1 - t0:.1f} s, "
+                  f"server stopped in {time.perf_counter() - t1:.1f} s",
+                  flush=True)
+
+    asyncio.run(main())
+
+
+class HolderHost:
+    """The parent's handle on :func:`_holders_main`: one request at a
+    time over a pipe, answered or raised within ``timeout`` seconds."""
+
+    def __init__(self, root, secrets, obf_keys, device):
+        import multiprocessing
+        import threading
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(
+            target=_holders_main,
+            args=(child, str(root), secrets, obf_keys, str(device)),
+            daemon=True)
+        self.proc.start()
+        child.close()
+        self._lock = threading.Lock()
+        if not self.conn.poll(300):
+            raise AssertionError("the holders' process did not start")
+        _ready, self.port = self.conn.recv()
+
+    def call(self, *cmd, timeout: float = 120.0):
+        with self._lock:
+            self.conn.send(cmd)
+            if not self.conn.poll(timeout):
+                raise AssertionError(f"the holders' process did not answer "
+                                     f"{cmd[0]} in {timeout} s")
+            status, out = self.conn.recv()
+        if status != "ok":
+            raise AssertionError(f"the holders' process failed: {out}")
+        return out
+
+    def stop(self):
+        """Stop the process (once; later calls return at once)."""
+        if self.conn.closed:
+            return
+        try:
+            with self._lock:
+                self.conn.send(("stop",))
+        except (BrokenPipeError, OSError):
+            pass
+        self.proc.join(60)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(10)
+        self.conn.close()
+
+
+def phase_engine(torch, rng, card, counters, device=None, spec=ENGINE_SPEC):
+    """The backup engine through its own entry points
+    (``backuwup_tpu_torch.engine.Engine``) on the card.  The port's
+    ``CoordinationServer`` on ``127.0.0.1`` and seven holders (each its
+    own identity, store, ``ServerClient`` and ``P2PNode``, serving audits
+    on a ``GpuBackend``) run together in one child process
+    (:func:`_holders_main`): in the owner's process the engine's
+    concurrent chunked sends stalled their acks past ``ACK_TIMEOUT_S``
+    (PERF.md §6).  The owner, in this process, is
+    ``Engine(keys, Store, ServerClient, P2PNode, backend=GpuBackend())``,
+    every other argument at its default: its tiered dedup front on the
+    card, RS(4, 2) over six peers, up to ``TRANSFER_MAX_PEERS`` whole-file
+    sends at once.  The owner is matched through the server with six
+    holders before the first backup and with the seventh before the
+    repair.  In order:
+
+    1. ``recover()`` on the fresh store, as ``ClientApp.start`` runs it;
+    2. ``run_backup`` of a seeded tree of ~54 MiB (``PACK_SPEC``'s file
+       mix, :data:`ENGINE_SPEC`): chunk, fingerprint and classify on the
+       card (K1, K2, K5's insert), seal, stripe (K6) and send;
+    3. ``run_audit_round()``: every holder passes;
+    4. one window of a holder's next challenged file corrupted on its
+       disk: the next round fails and demotes it, the others pass;
+    5. that holder and one more dark (the second demoted by three missed
+       audits), ``repair_round()``: the shards they held rebuilt from the
+       survivors (K6) and re-homed on the seventh holder, one a stripe
+       (the other four holders keep one each);
+    6. ~21 MiB added and a few files touched, ``run_backup`` again: every
+       chunk of the first tree a duplicate, only new packfiles sent (whole
+       files: five live holders are too few for a stripe);
+    7. ``run_restore`` on a fresh ``Store`` under the same identity, as a
+       lost machine would.
+
+    Checks (each raises): both roots equal ``DirPacker`` over
+    ``CpuBackend`` with a fresh index on the same tree and keys (in a
+    worker process beside the phase); every container a holder stores
+    equal to the host oracle's split of the sealed packfile (and every
+    whole packfile to the sealed bytes); the restored tree byte-identical;
+    ``bkw_backup_runs_total{outcome="ok"}`` up by 2, the audit and repair
+    counters as the steps imply; K5's claim vector all -1 after the
+    phase.  Returns the launches of each kernel in the phase, the
+    holders' K2 launches among them."""
+    import asyncio
+    import gc
+    import hashlib
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    from backuwup_tpu_torch import defaults
+    from backuwup_tpu_torch.crypto import KeyManager
+    from backuwup_tpu_torch.engine import Engine
+    from backuwup_tpu_torch.erasure import stripe as rs_stripe
+    from backuwup_tpu_torch.obs import metrics as obs_metrics
+    from backuwup_tpu_torch.ops.backend import GpuBackend
+    from backuwup_tpu_torch.snapshot.packfile import packfile_path
+    from backuwup_tpu_torch.utils.device import resolve_device
+    from backuwup_tpu_torch.wire import FileInfoKind
+
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    k, m = defaults.RS_K, defaults.RS_M
+    n_holders = k + m + 1
+    tmp = Path(tempfile.mkdtemp(prefix="bkw_engine_"))
+    secret = rng.bytes(32)
+    holder_secrets = [rng.bytes(32) for _ in range(n_holders)]
+    obf_keys = [rng.bytes(4) for _ in range(n_holders + 2)]
+    holder_ids = [KeyManager.from_secret(s).client_id
+                  for s in holder_secrets]
+    steps = {}  # wall seconds of each step
+    per_step = {}  # kernel launches of each step (the holders' K2 apart)
+
+    def total(name, **labels):
+        """A family's value summed over its series that carry
+        ``labels``."""
+        fam = obs_metrics.registry().get(name)
+        return 0.0 if fam is None else sum(
+            s["value"] for s in fam._snapshot_series()
+            if all(s["labels"].get(key) == v for key, v in labels.items()))
+
+    metrics0 = {name: total(name, **labels) for name, labels in (
+        ("bkw_backup_runs_total", {"outcome": "ok"}),
+        ("bkw_audit_rounds_total", {}), ("bkw_repair_rounds_total", {}),
+        ("bkw_repair_shards_rebuilt_total", {}),
+        ("bkw_transfer_stalls_total", {}),
+        ("bkw_transfer_resumes_total", {}),
+        ("bkw_transfer_bytes_resent_total", {}))}
+
+    def moved(name, **labels):
+        return total(name, **labels) - metrics0[name]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    zero_counts(counters)
+    before = read_counts(counters)
+    HOLDERS_K2 = "holders' blake3_leaf"
+    holders_k2 = {"before": 0}
+
+    async def step(name, t0):
+        nonlocal before
+        sync()
+        steps[name] = time.perf_counter() - t0
+        now = read_counts(counters)
+        per_step[name] = {n: now[n] - before[n] for n in now}
+        k2 = await asyncio.to_thread(host.call, "launches")
+        per_step[name][HOLDERS_K2] = k2 - holders_k2["before"]
+        holders_k2["before"] = k2
+        before = now
+
+    # the tree, and the host oracle of its first root beside the phase
+    src = tmp / "tree"
+    t0 = time.perf_counter()
+    size1 = grow_tree(rng, src, spec["tree"], spec, spec["tree_bytes"])
+    log(f"engine: tree of {size1 / MiB:.1f} MiB written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    oracle_pool = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    background = ThreadPoolExecutor(1)
+    host1 = oracle_pool.submit(_host_root, str(src), secret,
+                               str(tmp / "host1"))
+    kept = tmp / "sealed"  # a hard link of every packfile the owner seals
+    kept.mkdir()
+    lag = {"max": 0.0, "over_1s": 0}
+    gc_pauses = []
+    gc_start = {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start["t"] = time.perf_counter()
+        elif "t" in gc_start:
+            gc_pauses.append(time.perf_counter() - gc_start.pop("t"))
+
+    async def watch_loop():
+        while True:
+            t1 = time.perf_counter()
+            await asyncio.sleep(0.05)
+            late = time.perf_counter() - t1 - 0.05
+            lag["max"] = max(lag["max"], late)
+            lag["over_1s"] += late > 1.0
+
+    def host_state():
+        return (f"the owner's event loop woken late by up to "
+                f"{lag['max'] * 1e3:.1f} ms ({lag['over_1s']} times over "
+                f"1 s); {len(gc_pauses)} garbage collections, "
+                f"{sum(gc_pauses):.3f} s, the longest "
+                f"{max(gc_pauses, default=0.0):.3f} s; transfer stalls "
+                f"{int(moved('bkw_transfer_stalls_total'))}, resumes "
+                f"{int(moved('bkw_transfer_resumes_total'))}, bytes resent "
+                f"{int(moved('bkw_transfer_bytes_resent_total'))}")
+
+    async def wait_until(cond, what, timeout=60.0):
+        t1 = time.perf_counter()
+        while not await cond():
+            if time.perf_counter() - t1 > timeout:
+                raise AssertionError(f"timed out waiting for {what}")
+            await asyncio.sleep(0.05)
+
+    async def match(owner, idx, grant):
+        """The owner asks the server for ``grant`` on each of the holders
+        ``idx``; each answers with a request of ``grant``."""
+        await owner.client.backup_storage_request(
+            grant * len(idx), min_peers=len(idx))
+        await asyncio.to_thread(host.call, "request", idx, grant)
+
+        async def matched():
+            return all(owner.store.get_peer(holder_ids[i]) is not None
+                       for i in idx) and await asyncio.to_thread(
+                host.call, "knows", idx, owner.id)
+
+        await wait_until(matched, "BackupMatched pushes")
+
+    out = {}
+
+    async def run():
+        watcher = asyncio.create_task(watch_loop())
+        addr = f"127.0.0.1:{host.port}"
+        owner = EngineClient(tmp, "owner", secret, obf_keys[-2], addr)
+        clients = [owner]
+        engines = []
+        try:
+            t0 = time.perf_counter()
+            await owner.join()
+            # each of the six holders takes one shard of every stripe of
+            # both backups, a quarter of the tree's packfile bytes
+            grant = (size1 + spec["add_bytes"]) // 2 + 64 * MiB
+            stripe_holders, spare = list(range(k + m)), k + m
+            await match(owner, stripe_holders, grant)
+            await step("join + match", t0)
+            eng = Engine(owner.keys, owner.store, owner.client, owner.node,
+                         backend=GpuBackend(device=device))
+            engines.append(eng)
+            # the steps below drive the repair round themselves
+            eng.auto_repair = False
+            finalize = eng.index.finalize_packfile
+
+            def keep(pid, hashes):
+                os.link(packfile_path(eng._pack_dir(), pid),
+                        kept / bytes(pid).hex())
+                finalize(pid, hashes)
+
+            eng.index.finalize_packfile = keep
+            if eng.device_dedup is None or \
+                    eng.device_dedup.device.type != device.type:
+                raise AssertionError("the engine attached no dedup front "
+                                     "on the card")
+            log(f"engine: server and {n_holders} holders in a child "
+                f"process on {addr}; the owner matched with {k + m} holders "
+                f"at {grant} B each; Engine(backend=GpuBackend()) with "
+                f"{type(eng.device_dedup).__name__} on "
+                f"{eng.device_dedup.device} ({eng.device_dedup.capacity} "
+                f"slots), in {steps['join + match']:.3f} s")
+
+            # 1. the startup recovery sweep
+            t0 = time.perf_counter()
+            rec = await eng.recover()
+            await step("recover", t0)
+            log(f"engine: recover(): reconciled {rec['reconciled']}, "
+                f"backlog packfiles {rec['packfiles_pending']}, in "
+                f"{steps['recover']:.3f} s")
+
+            # 2. backup 1
+            t0 = time.perf_counter()
+            root1 = await eng.run_backup(src)
+            await step("backup 1", t0)
+            stats1 = eng.last_pack_stats
+            rows1 = owner.store.all_placements()
+            placed1 = sum(r[2] for r in rows1)
+            pids1 = {r[0] for r in rows1}
+            shape = {}  # each packfile's placement: its shard indexes
+            for r in rows1:
+                shape.setdefault(r[0], []).append(r[3])
+            full = {p for p, ix in shape.items()
+                    if sorted(ix) == list(range(k + m))}
+            whole = {p for p, ix in shape.items() if ix == [-1]}
+            log(f"engine: backup 1: {stats1.files} files, "
+                f"{stats1.bytes_read / MiB:.1f} MiB in "
+                f"{steps['backup 1']:.3f} s = "
+                f"{stats1.bytes_read / MiB / steps['backup 1']:.1f} MiB/s end "
+                f"to end; pack (chunk + fingerprint + classify) "
+                f"{stats1.bytes_read / MiB / max(stats1.chunk_hash_s, 1e-9):.1f}"
+                f" MiB/s over {stats1.chunk_hash_s:.3f} s; {len(pids1)} "
+                f"packfiles ({len(full)} RS({k}, {m}) stripes, {len(whole)} "
+                f"whole, {len(pids1) - len(full) - len(whole)} other) as "
+                f"{len(rows1)} placements, {placed1 / MiB:.1f} MiB delivered "
+                f"= {placed1 / MiB / steps['backup 1']:.1f} MiB/s over the "
+                f"backup's wall; {stats1.chunks} chunks, "
+                f"{stats1.chunks_deduped} blobs deduped; launches "
+                f"{per_step['backup 1']}; " + host_state() + f" [{card}]")
+            log(f"engine: backup 1 last_overlap "
+                f"{json.dumps(eng.last_overlap)}")
+            log(f"engine: backup 1 last_pipeline_report "
+                f"{json.dumps(eng.last_pipeline_report)}")
+            if not full:
+                raise AssertionError("backup 1 placed no stripe")
+            # the host oracle splits backup 1's stripes beside the steps
+            # that follow (CpuBackend, on two worker processes)
+            striped1 = sorted(p for p, ix in shape.items()
+                              if max(ix) >= 0)
+            containers1 = background.submit(
+                oracle_containers, [str(kept / p.hex()) for p in striped1],
+                2)
+
+            # 3. an audit round: every holder passes
+            t0 = time.perf_counter()
+            res1 = await eng.run_audit_round()
+            await step("audit round 1", t0)
+            round1_end = time.time()
+            if sorted(res1) != sorted(holder_ids[i]
+                                      for i in stripe_holders) or \
+                    not all(r.passed for r in res1.values()):
+                raise AssertionError(f"audit round 1: {res1}")
+            log(f"engine: audit round 1: {len(res1)} holders, "
+                f"{sum(r.checked for r in res1.values())} challenges, all "
+                f"pass, in {steps['audit round 1']:.3f} s; launches "
+                f"{per_step['audit round 1']}")
+
+            # 4. one window of the first file holder 1's next round
+            # challenges corrupted on its disk (select_challenges' order: a
+            # shard by its 13-byte id, or a packfile placed whole)
+            bad, dark2 = 1, 4
+            bad_id, dark2_id = holder_ids[bad], holder_ids[dark2]
+            for pid, _size, idx in owner.store.shard_placements_for_peer(
+                    bad_id):
+                sid = pid if idx < 0 else rs_stripe.shard_id(pid, idx)
+                if eng.challenge_tables.has(sid) and \
+                        owner.store.get_audit_cursor(sid) < len(
+                            eng.challenge_tables.load(sid)):
+                    break
+            entry = eng.challenge_tables.load(sid)[
+                owner.store.get_audit_cursor(sid)]
+            await asyncio.to_thread(
+                host.call, "corrupt", bad, owner.id,
+                "pack" if idx < 0 else "shard", sid.hex(),
+                entry.offset + entry.length // 2)
+            for i in stripe_holders:
+                eng.note_audit_due(holder_ids[i])
+            # a holder serves one audit per peer per interval
+            await asyncio.sleep(max(0.0, round1_end + 0.5 - time.time()
+                                    + defaults.AUDIT_SERVE_MIN_INTERVAL_S))
+            t0 = time.perf_counter()
+            res2 = await eng.run_audit_round()
+            await step("audit round 2", t0)
+            state = owner.store.get_audit_state(bad_id)
+            if res2[bad_id].passed or not state.demoted or any(
+                    not r.passed for p, r in res2.items() if p != bad_id):
+                raise AssertionError(f"audit round 2: {res2}")
+            log(f"engine: audit round 2 (after the holders' "
+                f"{defaults.AUDIT_SERVE_MIN_INTERVAL_S} s serve interval): "
+                f"peer{bad}'s corrupted window detected "
+                f"({res2[bad_id].detail[:60]}), demoted; the other "
+                f"{len(res2) - 1} pass; {steps['audit round 2']:.3f} s")
+
+            # 5. that holder and one more dark; a repair round
+            t0 = time.perf_counter()
+            for i in (bad, dark2):
+                await asyncio.to_thread(host.call, "dark", i)
+            t_dark = time.time()
+            for i in range(defaults.AUDIT_DEMOTE_MISSES):
+                r = await eng.audit_peer(dark2_id, now=t_dark + i)
+                if r is None or r.passed:
+                    raise AssertionError(f"peer{dark2} answered dark")
+            if not owner.store.get_audit_state(dark2_id).demoted:
+                raise AssertionError(f"peer{dark2} not demoted")
+            await match(owner, [spare], grant)
+            lost = (bad_id, dark2_id)
+            rows_r = owner.store.all_placements()
+            # the full stripes with a shard on a lost holder: each loses
+            # two, of which the spare takes one
+            striped = {r[0] for r in rows_r if r[1] in lost
+                       and r[0] in full}
+            t1 = time.perf_counter()
+            rep = await eng.repair_round()
+            await step("repair", t0)
+            t_repair = time.perf_counter() - t1
+            rows_ar = owner.store.all_placements()
+            sealed_ar = {bytes.fromhex(p.name) for p in kept.iterdir()}
+            spare_got = [f for f, (kind, _s) in (await asyncio.to_thread(
+                host.call, "stored", spare, owner.id)).items()
+                if kind == FileInfoKind.SHARD]
+            # a stripe the spare cannot take whole (a partial one, with
+            # live holders to spare) re-homes elsewhere
+            if rep["shards_rebuilt"] < len(striped) or \
+                    not len(striped) <= len(spare_got) \
+                    <= rep["shards_rebuilt"]:
+                raise AssertionError(f"repair: {rep}, {len(striped)} full "
+                                     f"stripes hit, the spare holds "
+                                     f"{len(spare_got)} shards")
+            log(f"engine: repair: peer{bad} and peer{dark2} dark "
+                f"(peer{dark2} demoted by {defaults.AUDIT_DEMOTE_MISSES} "
+                f"missed audits), peer{spare} matched; repair_round "
+                f"rebuilt {rep['shards_rebuilt']} shards ({len(striped)} "
+                f"full stripes hit) and re-homed them on peer{spare}, "
+                f"{rep['packfiles']} packfiles orphaned and re-packed, "
+                f"{rep['bytes_replaced'] / MiB:.1f} MiB in {t_repair:.3f} s "
+                f"= {rep['bytes_replaced'] / MiB / t_repair:.1f} MiB/s; the "
+                f"step {steps['repair']:.3f} s; launches "
+                f"{per_step['repair']}; " + host_state() + f" [{card}]")
+
+            # 6. the tree grows; backup 2
+            root1_host, host1_s = await asyncio.to_thread(host1.result)
+            if root1 != root1_host:
+                raise AssertionError("backup 1's root differs from the host "
+                                     "oracle's")
+            log(f"engine: root 1 equal to DirPacker over CpuBackend with a "
+                f"fresh index ({host1_s:.1f} s in a worker process)")
+            t0 = time.perf_counter()
+            size2 = grow_tree(rng, src / "added", spec["add"], spec,
+                              spec["add_bytes"])
+            for p in sorted(src.rglob("*.bin"))[:spec["touch"]]:
+                os.utime(p)
+            host2 = oracle_pool.submit(_host_root, str(src), secret,
+                                       str(tmp / "host2"))
+            log(f"engine: {size2 / MiB:.1f} MiB added, {spec['touch']} "
+                f"files touched, in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            root2 = await eng.run_backup(src)
+            await step("backup 2", t0)
+            stats2 = eng.last_pack_stats
+            rows2 = owner.store.all_placements()
+            new = {r[0] for r in rows2} - {r[0] for r in rows_ar}
+            sealed = {bytes.fromhex(p.name) for p in kept.iterdir()}
+            sealed2 = sealed - sealed_ar
+            # every chunk of tree 1 a duplicate: none of backup 1's blobs
+            # sealed again, and the front's hints never overruled
+            blobs = eng.index.blob_map()
+            old_blobs = {h for h, pid in blobs.items() if pid in pids1}
+            new_blobs = {h for h, pid in blobs.items() if pid in sealed2}
+            if stats2.chunks_deduped < stats1.chunks or new != sealed2 or \
+                    old_blobs & new_blobs or stats1.dedup_divergences or \
+                    stats2.dedup_divergences:
+                raise AssertionError(
+                    f"backup 2: {stats2.chunks_deduped} blobs deduped, tree "
+                    f"1 holds {stats1.chunks} chunks; {len(new)} packfiles "
+                    f"sent, {len(sealed2)} sealed; divergences "
+                    f"{stats1.dedup_divergences}/{stats2.dedup_divergences}")
+            log(f"engine: backup 2: {stats2.bytes_read / MiB:.1f} MiB read "
+                f"in {steps['backup 2']:.3f} s = "
+                f"{stats2.bytes_read / MiB / steps['backup 2']:.1f} MiB/s; "
+                f"{stats2.chunks} chunks, {stats2.chunks_deduped} blobs "
+                f"deduped (tree 1's {stats1.chunks} chunks among them), "
+                f"divergences 0; {len(sealed2)} new packfiles sealed and "
+                f"only they sent "
+                f"({sorted({r[3] for r in rows2 if r[0] in new})} shard "
+                f"indexes); launches {per_step['backup 2']}; "
+                + host_state() + f" [{card}]")
+            log(f"engine: backup 2 last_overlap "
+                f"{json.dumps(eng.last_overlap)}")
+            log(f"engine: backup 2 last_pipeline_report "
+                f"{json.dumps(eng.last_pipeline_report)}")
+
+            # every stored file equal to the host oracle's
+            t0 = time.perf_counter()
+            sha_sealed = {p: hashlib.sha256((kept / p.hex()).read_bytes())
+                          .digest() for p in sealed}
+            containers = dict(zip(striped1, await asyncio.to_thread(
+                containers1.result)))
+            rest = sorted({r[0] for r in rows2 if r[3] >= 0}
+                          - set(containers))
+            if rest:
+                containers.update(zip(rest, await asyncio.to_thread(
+                    oracle_containers, [str(kept / p.hex()) for p in rest],
+                    2)))
+            n_checked = 0
+            for i in range(n_holders):
+                if i == bad:
+                    continue  # its corrupted copy went dark with it
+                got = await asyncio.to_thread(host.call, "stored", i,
+                                              owner.id)
+                for fid, (kind, sha) in got.items():
+                    if kind == FileInfoKind.SHARD:
+                        want = containers[fid[:-1]][fid[-1]]
+                    elif kind == FileInfoKind.PACKFILE:
+                        want = sha_sealed[fid]
+                    else:
+                        continue  # index files
+                    if sha != want:
+                        raise AssertionError(f"peer{i} stores {fid.hex()} "
+                                             "unlike the host oracle's")
+                    n_checked += 1
+            log(f"engine: {n_checked} stored files (shard containers and "
+                f"whole packfiles), de-obfuscated, equal to the host "
+                f"oracle's split of the sealed packfiles (CpuBackend on 2 "
+                f"processes) and to the sealed bytes, in "
+                f"{time.perf_counter() - t0:.1f} s")
+
+            # 7. a lost machine: a fresh store under the same identity.  A
+            # holder streams a peer its whole store once per
+            # RESTORE_REQUEST_THROTTLE_S, and the repair's shard pulls
+            # may have fallen back to such streams: the restore comes
+            # after that interval, as a user's would
+            await owner.client.close()
+            await eng.aclose()
+            served = await asyncio.to_thread(host.call, "served", owner.id)
+            wait = 0.0 if served is None else max(
+                0.0, served + defaults.RESTORE_REQUEST_THROTTLE_S + 0.5
+                - time.time())
+            log(f"engine: the holders last streamed the owner its store "
+                f"{'never' if served is None else f'{time.time() - served:.1f} s ago'}"
+                f"; the restore waits {wait:.1f} s for their interval")
+            await asyncio.sleep(wait)
+            t0 = time.perf_counter()
+            lost_owner = EngineClient(tmp, "owner2", secret, obf_keys[-1],
+                                      addr)
+            clients.append(lost_owner)
+            await lost_owner.join()
+            eng2 = Engine(lost_owner.keys, lost_owner.store,
+                          lost_owner.client, lost_owner.node,
+                          backend=GpuBackend(device=device))
+            engines.append(eng2)
+            await eng2.recover()
+            dest = await eng2.run_restore(tmp / "restored")
+            await step("restore", t0)
+            n = same_tree(dest, src)
+            log(f"engine: restore onto a fresh store: {n / MiB:.1f} MiB "
+                f"byte-identical to the tree in {steps['restore']:.3f} s = "
+                f"{n / MiB / steps['restore']:.1f} MiB/s; launches "
+                f"{per_step['restore']} [{card}]")
+            root2_host, host2_s = await asyncio.to_thread(host2.result)
+            if root2 != root2_host:
+                raise AssertionError("backup 2's root differs from the host "
+                                     "oracle's")
+            log(f"engine: root 2 equal to DirPacker over CpuBackend with a "
+                f"fresh index ({host2_s:.1f} s in a worker process)")
+            for e in engines:
+                claim = getattr(getattr(e.device_dedup, "sharded", None),
+                                "claim", None)
+                if claim is not None and not bool((claim == -1).all()):
+                    raise AssertionError("K5's claim vector is not all -1")
+            out[HOLDERS_K2] = await asyncio.to_thread(
+                host.call, "launches")
+        finally:
+            t1 = time.perf_counter()
+            for e in engines:
+                await e.aclose()
+            for c in clients:
+                await c.client.close()
+                c.store.close()
+            log(f"engine: the owners' engines and clients closed in "
+                f"{time.perf_counter() - t1:.1f} s")
+            # the holders close while this loop still answers their
+            # transports' closing handshakes
+            await asyncio.to_thread(host.stop)
+            log("engine: the holders' process stopped")
+            watcher.cancel()
+
+    gc.callbacks.append(on_gc)
+    # the heap the phases before leave in this one process stays out of
+    # collections (PERF.md §6: a full collection over it paused the loop
+    # 6.8 s, past the ack deadline)
+    gc.freeze()
+    t_phase = time.perf_counter()
+    host = None
+    try:
+        host = HolderHost(tmp / "holders", holder_secrets,
+                          obf_keys[:n_holders], device)
+        log(f"engine: the holders' process up in "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        asyncio.run(run())
+        log("engine: the owner's event loop closed")
+        launches = read_counts(counters)
+    except BaseException:
+        log(f"engine: failed after {time.perf_counter() - t_phase:.1f} s, "
+            f"steps {steps}; " + host_state())
+        raise
+    finally:
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
+        if host is not None:
+            host.stop()
+        oracle_pool.shutdown(cancel_futures=True)
+        background.shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        log("engine: worker processes stopped, files removed")
+    wall = time.perf_counter() - t_phase
+    launches["blake3_leaf"] += out[HOLDERS_K2]
+    checks = {
+        "bkw_backup_runs_total": (moved("bkw_backup_runs_total",
+                                        outcome="ok"), 2),
+        "bkw_audit_rounds_total": (moved("bkw_audit_rounds_total"), 2),
+        "bkw_repair_rounds_total": (moved("bkw_repair_rounds_total"), 1)}
+    for name, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"{name} moved by {got}, not {want}")
+    log(f"engine: phase wall {wall:.3f} s ("
+        + ", ".join(f"{n} {s:.3f} s" for n, s in steps.items())
+        + f"); launches {launches} (the holders' serve_audit K2 "
+        f"{out[HOLDERS_K2]} among them); per step "
+        f"{per_step}; counters { {n: g for n, (g, _w) in checks.items()} },"
+        f" shards rebuilt {int(moved('bkw_repair_shards_rebuilt_total'))} "
+        f"[{card}]")
+    for name in ("scan_candidates", "blake3_leaf", "dedup_probe",
+                 "gf_matmul"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} not launched on the "
+                                 "engine's path")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2720,10 +3583,10 @@ def main(argv=None) -> int:
     from backuwup_tpu_torch.ops.gear import CDCParams
     from backuwup_tpu_torch.snapshot.device_dedup import MeshDedupIndex
 
-    t_start = time.perf_counter()
+    t_start = _T0[0] = time.perf_counter()
 
     def mark(label):
-        log(f"[{time.perf_counter() - t_start:.1f} s] {label} done")
+        log(f"{label} done")
 
     # 1. build + device
     t0 = time.perf_counter()
@@ -2810,15 +3673,18 @@ def main(argv=None) -> int:
                    "64 KiB chunks (from_desired(65536))", card,
                    (part_out, part_mib_s))
     del part_out
-    breakdown(torch, backend.manifest_many, corpus[:2],
-              "2 one-row 96 MiB files", card)
-    multi_tiny = corpus[8:48] + corpus[308:508]
+    # the profiled calls are small: parsing a trace costs host time in
+    # proportion to its events (~7,500 device events a MiB of multi-row
+    # and tiny files on the card, ~220 of one-row files)
+    breakdown(torch, backend.manifest_many, corpus[:1],
+              "1 one-row 96 MiB file", card)
+    multi_tiny = corpus[8:10] + corpus[308:318]
     breakdown(torch, backend.manifest_many, multi_tiny,
-              "40 multi-row + 200 tiny files", card)
+              "2 multi-row + 10 tiny files", card)
     calls = dedup_index.insert_table.launches
     counts = breakdown(torch, lambda streams: backend.manifest_many_classified(
         streams, MeshDedupIndex(SetAuthority())), multi_tiny,
-        "40 multi-row + 200 tiny files, classified", card)
+        "2 multi-row + 10 tiny files, classified", card)
     calls = dedup_index.insert_table.launches - calls
     if counts is not None:
         log(f"K5 in the profiled classified call: {calls} insert calls, "
@@ -2878,6 +3744,28 @@ def main(argv=None) -> int:
     gf_row["launches"] = stripe_launches["gf_matmul"]
     rows.append(gf_row)
     mark("pack and stripe phases")
+    torch.cuda.empty_cache()
+
+    # 7. the engine phase: the same kernels on the path a user drives,
+    # counted from 0 for every kernel of the line
+    from backuwup_tpu_torch.ops import pallas_kernels
+    engine_counters = {
+        "scan_candidates": (scan_fused.candidate_words,),
+        "blake3_leaf": (blake3_gpu.leaf_scan,),
+        "gear_values": (pallas_kernels.gear_values,),
+        "ladder_candidates": (pallas_kernels.ladder_candidates,),
+        "dedup_probe": (dedup_index.insert_table,),
+        "dedup_probe_table": (dedup_index.probe_table,),
+        "dedup_migrate": (dedup_index.migrate_round,),
+        "gf_matmul": (rs_gpu.gf_matmul,)}
+    t0 = time.perf_counter()
+    engine_launches = phase_engine(
+        torch, np.random.default_rng([args.seed, 6]), card, engine_counters)
+    for row in rows:
+        row["engine_launches"] = engine_launches[row["name"]]
+    log(f"engine phase: {time.perf_counter() - t0:.1f} s")
+    mark("engine phase")
+    log(f"script total {time.perf_counter() - t_start:.1f} s [{card}]")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -504,3 +504,137 @@ def test_gpu_backend_erasure_launches_k6():
     assert rebuilt == {0: containers[0], 5: containers[5]}
     # split 1, assemble 1, rebuild: decode + encode
     assert rs_gpu.gf_matmul.launches == before + 4
+
+
+def test_engine_without_cuda_raises(tmp_path, monkeypatch):
+    """``Engine(..., backend=None)`` takes ``select_backend()``, the GPU:
+    without CUDA it raises instead of dropping to the CPU."""
+    from backuwup_tpu_torch.crypto import KeyManager
+    from backuwup_tpu_torch.engine import Engine
+    from backuwup_tpu_torch.store import Store
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = Store(tmp_path / "cfg", data_base=tmp_path / "data")
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Engine(KeyManager.from_secret(b"\x01" * 32), store, None, None)
+    finally:
+        store.close()
+
+
+@pytest.mark.cuda
+def test_dev_time_times_cuda_tensors_with_events(monkeypatch):
+    _needs_card()
+    from backuwup_tpu_torch.obs import profile
+
+    made = []
+    event = torch.cuda.Event
+
+    def counting_event(*args, **kw):
+        made.append(kw.get("enable_timing"))
+        return event(*args, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Event", counting_event)
+    x = torch.ones(1 << 22, dtype=torch.float32, device="cuda")
+    dt = profile.dev_time(lambda t: t * 2.0, x, n=10)
+    assert 0 < dt < 1.0
+    assert made == [True, True]
+
+
+@pytest.mark.cuda
+def test_engine_backs_up_and_restores_on_the_card(tmp_path):
+    """``Engine(..., backend=GpuBackend())`` backs an ~8 MiB tree up to
+    six loopback holders as RS(4, 2) stripes and restores it onto a fresh
+    store byte-identical; its tiered front's K5 insert, the scan (K1), the
+    leaf hash (K2) and the GF(2^8) product (K6) all launch."""
+    _needs_card()
+    import asyncio
+    import hashlib
+
+    from backuwup_tpu_torch import defaults
+    from backuwup_tpu_torch.crypto import KeyManager
+    from backuwup_tpu_torch.engine import Engine
+    from backuwup_tpu_torch.net.client import ServerClient
+    from backuwup_tpu_torch.net.p2p import (P2PNode, ReceivedFilesWriter,
+                                            Receiver)
+    from backuwup_tpu_torch.net.server import CoordinationServer
+    from backuwup_tpu_torch.store import Store
+
+    rng = np.random.default_rng(71)
+    src = tmp_path / "src"
+    for i in range(8):
+        p = src / f"d{i % 3}" / f"f{i}.bin"
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(rng.bytes(1 << 20))
+    (src / "copy.bin").write_bytes((src / "d0" / "f0.bin").read_bytes())
+
+    def digest(root):
+        return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes())
+                .hexdigest() for p in sorted(root.rglob("*")) if p.is_file()}
+
+    kernels = (scan_fused.candidate_words, blake3_gpu.leaf_scan,
+               dedup_index.insert_table, rs_gpu.gf_matmul)
+    before = [k.launches for k in kernels]
+
+    async def client(name, secret, addr, hold):
+        keys = KeyManager.from_secret(secret)
+        store = Store(tmp_path / name / "cfg",
+                      data_base=tmp_path / name / "data")
+        store.set_obfuscation_key(secret[:4])
+        c = ServerClient(keys, store, addr=addr, tls=False)
+        node = P2PNode(keys, store, c)
+        if hold:
+            async def accept(source, transport):
+                w = ReceivedFilesWriter(store, source)
+                await Receiver(transport, w.sink, part_sink=w.sink_part,
+                               resume_query=w.resume_offer).run()
+            node.on_transport_request = accept
+            node.on_restore_request = node.serve_restore
+        await c.register()
+        await c.login()
+        c.start_ws()
+        await asyncio.wait_for(c.ws_connected.wait(), 10)
+        return keys, store, c, node
+
+    async def run():
+        server = CoordinationServer(db_path=str(tmp_path / "server.db"))
+        addr = f"127.0.0.1:{await server.start()}"
+        made = []
+        try:
+            holders = [await client(f"h{i}", bytes([0x60 + i]) * 32, addr,
+                                    True) for i in range(6)]
+            made += holders
+            keys, store, c, node = await client("owner", b"\x31" * 32, addr,
+                                                False)
+            made.append((keys, store, c, node))
+            for hk, hs, _c, _n in holders:
+                store.add_peer_negotiated(hk.client_id, 64 << 20)
+                hs.add_peer_negotiated(keys.client_id, 64 << 20)
+                server.db.save_storage_negotiated(keys.client_id,
+                                                  hk.client_id, 64 << 20)
+            eng = Engine(keys, store, c, node, backend=GpuBackend())
+            assert eng.device_dedup is not None
+            assert eng.device_dedup.device.type == "cuda"
+            await eng.recover()
+            await eng.run_backup(src)
+            # stripes of RS_K + RS_M shards (a packfile can go out whole
+            # when two admission ticks race for a holder's dial)
+            assert set(range(defaults.RS_K + defaults.RS_M)) <= \
+                {i for *_r, i, _t in store.all_placements()}
+            await c.close()
+            _k, store2, c2, node2 = await client("owner2", b"\x31" * 32,
+                                                 addr, False)
+            made.append((_k, store2, c2, node2))
+            eng2 = Engine(keys, store2, c2, node2, backend=GpuBackend())
+            await eng2.recover()
+            dest = await eng2.run_restore(tmp_path / "restored")
+            assert digest(dest) == digest(src)
+        finally:
+            for _k, s, cl, _n in made:
+                await cl.close()
+                s.close()
+            await server.stop()
+
+    asyncio.run(asyncio.wait_for(run(), 300))
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(kernels, before))

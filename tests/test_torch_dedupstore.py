@@ -286,14 +286,19 @@ def test_tier_crash_sites_registered():
 
     for pkg in ("backuwup_tpu", "backuwup_tpu_torch"):
         for mod in ("dedupstore.cold", "snapshot.packfile",
-                    "snapshot.blob_index", "net.serverstore", "net.p2p"):
+                    "snapshot.blob_index", "net.serverstore", "net.p2p",
+                    "engine"):
             importlib.import_module(f"{pkg}.{mod}")
     want = TIER_SITES | {
         "pack.seal.pre", "pack.seal.post", "index.save.pre",
         "index.save.post", "challenge.save.pre", "challenge.save.post",
         "partial.sink.pre", "partial.sink.post",
         "repl.log.append.pre", "repl.log.append.post", "repl.ship.acked",
-        "repl.promote.pre", "repl.promote.post"}
+        "repl.promote.pre", "repl.promote.post"} | {
+        f"{seam}.{side}" for side in ("pre", "post") for seam in (
+            "placement.insert", "stripe.finish", "repair.rehome",
+            "gc.prune", "gc.sweep", "gc.compact.seal", "gc.swap",
+            "gc.reclaim")}
     sites = set(faults.crash_sites())
     assert sites == want
     port = Path(faults.__file__).resolve().parent.parent

@@ -49,11 +49,12 @@ def test_no_jax_or_reference_imports_in_port_sources():
 
 @pytest.mark.parametrize("part", ["obs", "dedupstore", "snapshot", "utils",
                                   "net", "crypto.py", "wire.py",
-                                  "wordlist.py"])
+                                  "wordlist.py", "engine.py"])
 def test_host_layer_copies_are_scanned_and_stand_alone(part):
     """The host layers the port copied from the reference (its own
     ``obs``, ``dedupstore``, ``snapshot``, ``utils`` and ``net`` packages
-    and the top-level ``crypto``, ``wire`` and ``wordlist`` modules) are in the
+    and the top-level ``crypto``, ``wire``, ``wordlist`` and ``engine``
+    modules) are in the
     scanned set and import nothing of the JAX package or of JAX."""
     path = PORT / part
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]

@@ -156,14 +156,22 @@ def run_case(module, ns, name, params, request, fixtures=None):
     with ``params`` and its other arguments from ``fixtures`` (factories
     for fixtures that depend on the package) or from pytest.  The
     reference modules a case imports inside its body are served from the
-    picked package for the duration of the case."""
+    picked package for the duration of the case (a module imported from
+    the package itself, ``from backuwup_tpu import defaults``, as the
+    package's attribute)."""
     mp = request.getfixturevalue("monkeypatch")
     pick = ns["__pick__"]
-    for _name, path, _attr, top in _ref_imports(module):
-        pkg = pick(_sub(path))
-        if not top and pkg != REF:
+    for _name, path, attr, top in _ref_imports(module):
+        sub = _sub(path)
+        pkg = pick(sub or attr)
+        if top or pkg == REF:
+            continue
+        if sub:
             mp.setitem(sys.modules, path,
-                       importlib.import_module(f"{pkg}.{_sub(path)}"))
+                       importlib.import_module(f"{pkg}.{sub}"))
+        else:  # ``from backuwup_tpu import defaults`` in a body
+            mp.setattr(importlib.import_module(REF), attr,
+                       importlib.import_module(f"{pkg}.{attr}"))
     fn = ns[name]
     kwargs = dict(params)
     for arg in inspect.signature(fn).parameters:
