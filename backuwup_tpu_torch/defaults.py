@@ -214,6 +214,19 @@ SLO_CATALOG = (
                     " log-tail replay)"},
 )
 
+# --- the SLO plane's series and diagnosis (backuwup_tpu/defaults.py:226-232,
+# :291-292) ---------------------------------------------------------------------
+# the series recorder's sampling cadence and ring depth (obs/series.py),
+# the robust-zscore anomaly flag and the points a series needs before it
+# is judged; how far back the breach explainer gathers evidence and how
+# many ranked causes it keeps (obs/diagnose.py)
+SERIES_SAMPLE_INTERVAL_S = 10.0
+SERIES_RETENTION_POINTS = 2048
+SERIES_ANOMALY_Z = 3.5
+SERIES_ANOMALY_MIN_POINTS = 6
+DIAGNOSE_WINDOW_S = 600.0
+DIAGNOSE_TOP_CAUSES = 5
+
 # --- durability invariant monitor (backuwup_tpu/defaults.py:297, :301) ------
 DURABILITY_SWEEP_INTERVAL_S = 5.0
 DURABILITY_AUDIT_MAX_AGE_S = 4 * AUDIT_INTERVAL_S
@@ -251,6 +264,12 @@ REPL_PROBE_FAILURES = 2
 AUTH_CHALLENGE_TTL_S = 30.0
 SESSION_TTL_S = 24 * 3600.0
 P2P_REQUEST_TTL_S = 60.0
+
+# --- UI cadence (backuwup_tpu/defaults.py:416-418; reference
+# ws_status_message.rs:134-141, backup/mod.rs:112) ------------------------------
+PROGRESS_DEBOUNCE_S = 0.1
+PEERS_DEBOUNCE_S = 0.25
+PROGRESS_TICKER_S = 0.4
 
 # --- the engine's send loop, restore and GC (backuwup_tpu/defaults.py:37-38,
 # :43-44, :88, :106, :143, :322) ---------------------------------------------

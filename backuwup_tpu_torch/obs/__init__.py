@@ -14,16 +14,23 @@ plane and the network plane write to:
   timer;
 * :mod:`~backuwup_tpu_torch.obs.invariants` -- the durability invariant
   monitor, whose ``bkw_durability_*`` facts ``/healthz`` reads;
-* :mod:`~backuwup_tpu_torch.obs.slo` and
-  :mod:`~backuwup_tpu_torch.obs.expo` -- the SLO status and the
-  ``/metrics`` + ``/healthz`` exposition of the coordination server,
-  imported where they are used, as in the reference.
+* :mod:`~backuwup_tpu_torch.obs.timeline` -- journals and spans exported
+  as Chrome trace-event JSON (Perfetto), several clients' journals merged
+  into one timeline;
+* :mod:`~backuwup_tpu_torch.obs.series`,
+  :mod:`~backuwup_tpu_torch.obs.slo`,
+  :mod:`~backuwup_tpu_torch.obs.diagnose` and
+  :mod:`~backuwup_tpu_torch.obs.expo` -- the live SLO plane (series
+  recorder, burn-rate status, breach diagnosis) and the ``/metrics`` +
+  ``/healthz`` exposition of the server and the client, imported where
+  they are used, as in the reference.
 
 No module here imports ``torch`` when it is imported (``trace.device_profiler``
 and ``profile.dev_time`` import it when called); ``expo`` imports
 ``aiohttp``.
 """
 
-from . import invariants, journal, metrics, profile, trace
+from . import invariants, journal, metrics, profile, timeline, trace
 
-__all__ = ["invariants", "journal", "metrics", "profile", "trace"]
+__all__ = ["invariants", "journal", "metrics", "profile", "timeline",
+           "trace"]

@@ -85,13 +85,20 @@ Builds the port's CUDA kernels from ``backuwup_tpu_torch/csrc`` and runs:
    round trips, the server's ``/healthz`` and counters;
 7. the engine phase (:func:`phase_engine`): ``Engine`` itself, over the
    same network plane with an owner and seven holders, backs up a seeded
-   tree of ~54 MiB (K1, K2, K5's insert, K6), passes an audit
+   tree of ~31 MiB (K1, K2, K5's insert, K6), passes an audit
    round, catches a corrupted window, repairs two dark holders onto the
    seventh, backs up ~21 MiB more as duplicates plus new packfiles, and
    restores onto a fresh store; roots against ``DirPacker`` over
    ``CpuBackend``, every stored container against the host oracle, the
    restored tree byte-identical; every kernel's launches in the phase go
-   into its row's ``engine_launches``.
+   into its row's ``engine_launches``;
+8. the app phase (:func:`phase_app`): the system as users run it --
+   ``python -m backuwup_tpu_torch server``, seven holder ``client``
+   processes on the card, the owner's ``ClientApp`` and dashboard in this
+   process backing up a seeded ~13 MiB tree, auditing its holders and
+   reporting ``/healthz``, then a ``client --restore-phrase`` process on
+   fresh directories restoring the tree byte for byte over its
+   dashboard; the owner's launches go into each row's ``app_launches``.
 
 The build phase also logs the versions of ``aiohttp``, ``websockets`` and
 ``cryptography``, which the network plane imports.
@@ -2741,14 +2748,16 @@ def phase_stripe(torch, rng, card, counters, ctx, device=None,
 # 260.7 MiB took backup 1 alone 424 s on the card's host, the engine at 0.6
 # MiB/s end to end with every holder's transfers on one host (PERF.md §6),
 # and the whole script with a 106.6 MiB tree once ran past its 1,200 s
-# limit: the tree is ~54 MiB, its growth ~21 MiB
+# limit: the tree is ~31 MiB, its growth ~10 MiB (~54 and ~21 MiB until
+# the app phase came after it: PERF.md §4)
 ENGINE_SPEC = dict(
     PACK_SPEC,
-    big=32 * MiB,
-    tree={"big": 1, "multi": 4, "tiny": 150, "repeats": 3, "stream": 0},
-    tree_bytes=48 * MiB,
+    big=16 * MiB,
+    multi=(256 * 1024, 4 * MiB),
+    tree={"big": 1, "multi": 4, "tiny": 60, "repeats": 3, "stream": 0},
+    tree_bytes=26 * MiB,
     add={"big": 0, "multi": 3, "tiny": 60, "repeats": 0, "stream": 0},
-    add_bytes=16 * MiB,
+    add_bytes=8 * MiB,
     touch=4,
 )
 
@@ -3018,7 +3027,7 @@ def phase_engine(torch, rng, card, counters, device=None, spec=ENGINE_SPEC):
     repair.  In order:
 
     1. ``recover()`` on the fresh store, as ``ClientApp.start`` runs it;
-    2. ``run_backup`` of a seeded tree of ~54 MiB (``PACK_SPEC``'s file
+    2. ``run_backup`` of a seeded tree of ~31 MiB (``PACK_SPEC``'s file
        mix, :data:`ENGINE_SPEC`): chunk, fingerprint and classify on the
        card (K1, K2, K5's insert), seal, stripe (K6) and send;
     3. ``run_audit_round()``: every holder passes;
@@ -3562,6 +3571,603 @@ def phase_engine(torch, rng, card, counters, device=None, spec=ENGINE_SPEC):
     return launches
 
 
+# the owner's tree: ENGINE_SPEC's mix (a big file, multi-row files, tiny
+# files, repeats) at ~13 MiB (with 32 MiB the script took 679.5-763.3 s,
+# PERF.md §4); each holder's: a few small files, one packfile under
+# TRANSFER_CHUNK_BYTES
+APP_SPEC = dict(
+    ENGINE_SPEC,
+    big=4 * MiB,
+    tree={"big": 1, "multi": 4, "tiny": 40, "repeats": 3, "stream": 0},
+    tree_bytes=12 * MiB,
+    holder_tree={"big": 0, "multi": 2, "tiny": 12, "repeats": 0,
+                 "stream": 0},
+    holder_multi=(64 * 1024, 256 * 1024),
+    holder_tiny=16 * 1024,
+    holder_bytes=768 * 1024,
+)
+APP_HOLDERS = 7
+# each process of the app phase must exit this long after its SIGINT
+APP_EXIT_S = 15.0
+
+
+class AppProcess:
+    """One ``python -m backuwup_tpu_torch`` process of the app phase, its
+    output gathered line by line by a thread (and kept in a log file)."""
+
+    def __init__(self, name: str, args, log_dir: Path):
+        import subprocess
+        import threading
+
+        self.name = name
+        self.lines = []
+        self.times = []  # when each line arrived (perf_counter)
+        self._cond = threading.Condition()
+        self._log = open(log_dir / f"{name}.log", "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "backuwup_tpu_torch", *args],
+            cwd=str(HERE), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, bufsize=1, start_new_session=True)
+        self.pid = self.proc.pid
+        self._thread = threading.Thread(target=self._pump, daemon=True)
+        self._thread.start()
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self._log.write(line)
+            self._log.flush()
+            with self._cond:
+                self.lines.append(line.rstrip("\n"))
+                self.times.append(time.perf_counter())
+                self._cond.notify_all()
+        with self._cond:
+            self._cond.notify_all()
+
+    def tail(self, n: int = 20) -> str:
+        with self._cond:
+            return "\n".join(self.lines[-n:])
+
+    def wait_for(self, needle: str, timeout: float):
+        """``(line, seconds since the start)`` of the first line holding
+        ``needle``; raises if the process ends or ``timeout`` passes
+        first."""
+        deadline = time.perf_counter() + timeout
+        seen = 0
+        with self._cond:
+            while True:
+                for i in range(seen, len(self.lines)):
+                    if needle in self.lines[i]:
+                        return self.lines[i], self.times[i] - self.t0
+                seen = len(self.lines)
+                left = deadline - time.perf_counter()
+                if self.proc.poll() is not None and not self._thread.is_alive():
+                    raise AssertionError(
+                        f"{self.name} exited ({self.proc.returncode}) before "
+                        f"{needle!r}:\n{self.tail()}")
+                if left <= 0:
+                    raise AssertionError(
+                        f"{self.name}: no {needle!r} in {timeout} s:\n"
+                        f"{self.tail()}")
+                self._cond.wait(min(left, 0.5))
+
+    def interrupt(self) -> float:
+        """SIGINT, then the seconds until the process exited; raises if it
+        outlives :data:`APP_EXIT_S`."""
+        import signal
+        import subprocess
+
+        t0 = time.perf_counter()
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(APP_EXIT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f"{self.name} still runs {APP_EXIT_S} s after SIGINT:\n"
+                    f"{self.tail()}") from None
+        self._thread.join(5)
+        return time.perf_counter() - t0
+
+    def kill(self):
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait(10)
+        self._log.close()
+
+
+def on_card(pid: int) -> bool:
+    """Whether process ``pid`` holds a GPU device open (``/dev/nvidia<N>``
+    among its file descriptors), read from ``/proc`` without its help."""
+    import re
+
+    fd_dir = Path(f"/proc/{pid}/fd")
+    for fd in fd_dir.iterdir():
+        try:
+            if re.fullmatch(r"/dev/nvidia\d+", os.readlink(fd)):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def process_start_split(device: str) -> str:
+    """A fresh interpreter's ``import torch`` and first tensor on
+    ``device`` (the CUDA context), timed by itself: the part of a client
+    process's start that is neither ``ClientApp`` nor its login."""
+    import subprocess
+
+    code = ("import time\n"
+            "t0 = time.perf_counter()\n"
+            "import torch\n"
+            "t1 = time.perf_counter()\n"
+            f"torch.zeros(1, device={device!r}).sum().item()\n"
+            "t2 = time.perf_counter()\n"
+            "print(f'import torch {t1 - t0:.2f} s, first tensor on "
+            f"{device} {{t2 - t1:.2f}} s')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, check=True)
+    return res.stdout.strip()
+
+
+def compute_apps() -> str:
+    """``nvidia-smi``'s compute processes, one line."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    return "; ".join(out.splitlines()) or "none"
+
+
+class Dashboard:
+    """A WebSocket on one client's dashboard: every frame kept, waits on
+    kinds, ``error`` and ``panic`` frames gathered."""
+
+    def __init__(self, name, ws):
+        import asyncio
+
+        self.name = name
+        self.ws = ws
+        self.frames = []
+        self.errors = []
+        self._cond = asyncio.Condition()
+        self._task = asyncio.create_task(self._read())
+
+    async def _read(self):
+        import aiohttp
+
+        async for msg in self.ws:
+            if msg.type != aiohttp.WSMsgType.TEXT:
+                break
+            ev = json.loads(msg.data)
+            if ev["kind"] in ("error", "panic"):
+                self.errors.append(ev)
+            async with self._cond:
+                self.frames.append(ev)
+                self._cond.notify_all()
+        async with self._cond:
+            self._cond.notify_all()
+
+    async def send(self, command, **fields):
+        await self.ws.send_str(json.dumps(dict(fields, command=command)))
+
+    async def until(self, pred, what, timeout: float, start: int = 0):
+        """The first frame from index ``start`` on that ``pred`` accepts;
+        raises on an error frame, a closed socket or ``timeout``."""
+        import asyncio
+
+        async def wait():
+            seen = start
+            async with self._cond:
+                while True:
+                    if self.errors:
+                        raise AssertionError(
+                            f"{self.name}'s dashboard: {self.errors[0]}")
+                    for ev in self.frames[seen:]:
+                        if pred(ev):
+                            return ev
+                    seen = len(self.frames)
+                    if self._task.done():
+                        raise AssertionError(
+                            f"{self.name}'s dashboard closed before {what}")
+                    await self._cond.wait()
+
+        try:
+            return await asyncio.wait_for(wait(), timeout)
+        except asyncio.TimeoutError:
+            raise AssertionError(f"{self.name}: no {what} in {timeout} s; "
+                                 f"last frames {self.frames[-3:]}") from None
+
+    async def run(self, command, done_kind, timeout: float, **fields):
+        mark = len(self.frames)
+        await self.send(command, **fields)
+        return await self.until(lambda ev: ev["kind"] == done_kind,
+                                done_kind, timeout, start=mark)
+
+    async def close(self):
+        await self.ws.close()
+        await self._task
+
+
+def phase_app(torch, rng, card, counters, device=None, spec=APP_SPEC):
+    """The system as users run it (phase 8): a coordination server, seven
+    holders and a recovery client as ``python -m backuwup_tpu_torch``
+    processes, and the owner's ``ClientApp`` with its ``UIServer`` in this
+    process, built as ``__main__._run_client`` builds them
+    (``backend=None``: ``select_backend()``, the card; a status listener
+    on an ephemeral port), so the kernel wrappers count its launches.
+    Every client runs on the card unless ``device`` is the CPU (then each
+    gets ``--device cpu``: the rehearsal).  In order:
+
+    1. ``server --bind 127.0.0.1:0``; the seven holders started together,
+       each with ``--backup-path`` on a seeded tree of its own (~1 MiB);
+       each holder holds a GPU device open (``/proc/<pid>/fd``: on the
+       card's machine ``nvidia-smi`` lists every process as pid 1 of the
+       sandbox's own namespace, so its pids cannot be matched);
+    2. the owner asks the server for ``7 x STORAGE_REQUEST_STEP`` over
+       ``RS_K + RS_M`` peers (its standing request), then each holder's
+       ``start_backup`` over its dashboard: each holder's storage request
+       (one step) is matched against the owner's, both record the grant,
+       and the holder's packfile goes to the owner;
+    3. the owner's dashboard: ``get_config``, ``config`` (the backup path
+       on a seeded tree of :data:`APP_SPEC`'s mix, ~13 MiB),
+       ``start_backup`` until ``backup_finished`` (K1, K2, K5's insert;
+       stripes split by K6), ``start_audit`` and a ``peers`` frame in
+       which every holder of its data shows audit health ``pass``; its
+       ``/healthz`` and ``/metrics``; then it stops, and its directories
+       are deleted;
+    4. ``client --restore-phrase <the owner's phrase>`` on fresh
+       directories: its dashboard's ``start_restore`` until
+       ``restore_finished`` (every holder streams its whole store; K6
+       assembles the stripes);
+    5. SIGINT to every process.
+
+    Checks (each raises): no ``error`` frame on any dashboard; the
+    owner's root equal to ``DirPacker`` over ``CpuBackend`` with a fresh
+    index on the same tree and keys (a worker process); its packfiles RS
+    stripes each on six distinct holders (whole and partial ones counted
+    and logged); every holder of its data audited ``pass``; ``/healthz``
+    durability ``ok`` with no degraded or lost stripe; the recovered tree
+    byte-identical; K1, K2, K5's insert and K6 launched by the owner;
+    every process gone within :data:`APP_EXIT_S` of its SIGINT.  Returns
+    the owner's launches of each kernel."""
+    import asyncio
+    import gc
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import aiohttp
+
+    from backuwup_tpu_torch import defaults
+    from backuwup_tpu_torch.app import ClientApp
+    from backuwup_tpu_torch.crypto import secret_to_phrase
+    from backuwup_tpu_torch.obs import metrics as obs_metrics
+    from backuwup_tpu_torch.ops.backend import GpuBackend
+    from backuwup_tpu_torch.ui.messenger import Messenger
+    from backuwup_tpu_torch.ui.server import UIServer
+    from backuwup_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    k, m = defaults.RS_K, defaults.RS_M
+    # the owner's process as a fresh client's: no series of the phases
+    # before in the registry its SLO monitor and /metrics read
+    obs_metrics.registry().reset()
+    tmp = Path(tempfile.mkdtemp(prefix="bkw_app_"))
+    log_dir = HERE / "chiprun_out" / "app_phase"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    dev_args = [] if cuda else ["--device", "cpu"]
+    steps = {}
+    starts = {}
+    procs = []
+
+    def client_args(name, **opts):
+        args = ["client", "--non-interactive", "--no-tls",
+                "--server-addr", opts.pop("addr"),
+                "--config-dir", str(tmp / name / "cfg"),
+                "--data-dir", str(tmp / name / "data"),
+                "--ui-bind", "127.0.0.1:0"]
+        for key, value in opts.items():
+            args += [f"--{key.replace('_', '-')}", str(value)]
+        return args + dev_args
+
+    def check_on_card(p):
+        if cuda and not on_card(p.pid):
+            raise AssertionError(f"{p.name} (pid {p.pid}) holds no GPU "
+                                 "device open")
+
+    def start(proc, needle, timeout=180.0):
+        line, starts[proc.name] = proc.wait_for(needle, timeout)
+        return line
+
+    src = tmp / "owner_tree"
+    t0 = time.perf_counter()
+    size = grow_tree(rng, src, spec["tree"], spec, spec["tree_bytes"])
+    holder_spec = dict(spec, multi=spec["holder_multi"],
+                       tiny=spec["holder_tiny"])
+    holder_trees = []
+    for i in range(APP_HOLDERS):
+        root = tmp / f"holder{i}_tree"
+        grow_tree(rng, root, spec["holder_tree"], holder_spec,
+                  spec["holder_bytes"])
+        holder_trees.append(root)
+    log(f"app: the owner's tree {size / MiB:.1f} MiB and {APP_HOLDERS} "
+        f"holders' trees of {spec['holder_bytes'] / MiB:.2f} MiB or more "
+        f"written in {time.perf_counter() - t0:.1f} s [{card}]")
+    oracle_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    out = {}
+
+    async def run():
+        t_phase = time.perf_counter()
+        server = AppProcess("server", ["server", "--bind", "127.0.0.1:0",
+                                       "--db", str(tmp / "server.db")],
+                            log_dir)
+        procs.append(server)
+        line = await asyncio.to_thread(start, server, "listening on", 60.0)
+        addr = line.split("listening on ", 1)[1].split()[0]
+        holders = [AppProcess(f"holder{i}", client_args(
+            f"holder{i}", addr=addr, backup_path=holder_trees[i]), log_dir)
+            for i in range(APP_HOLDERS)]
+        procs.extend(holders)
+        # the owner, as __main__._run_client builds it, while the holders
+        # start
+        zero_counts(counters)
+        messenger = Messenger()
+        app = ClientApp(config_dir=tmp / "owner" / "cfg",
+                        data_dir=tmp / "owner" / "data", server_addr=addr,
+                        backend=None if cuda else GpuBackend(device="cpu"),
+                        messenger=messenger, tls=False, status_port=0)
+        ui = UIServer(app, bind="127.0.0.1:0")
+        # the host oracle of the owner's first root, beside the phase
+        host = oracle_pool.submit(_host_root, str(src),
+                                  app.keys.root_secret, str(tmp / "host"))
+        owner_up = False
+        try:
+            await app.start()
+            url = await ui.start()
+            owner_up = True
+            starts["owner"] = time.perf_counter() - t_phase
+            urls = [(await asyncio.to_thread(start, h, "dashboard at"))
+                    .rsplit("at ", 1)[1].strip() for h in holders]
+            for h in holders:
+                check_on_card(h)
+            steps["start: server, 7 holders, owner"] = \
+                time.perf_counter() - t_phase
+            log(f"app: server on {addr}; holders up in "
+                + ", ".join(f"{starts[h.name]:.1f}" for h in holders)
+                + f" s (torch import, CUDA context, ClientApp, login); the "
+                f"owner's ClientApp on {app.engine.backend.device} up at "
+                f"{starts['owner']:.1f} s; compute apps: "
+                f"{compute_apps() if cuda else 'none (the CPU)'} "
+                f"[{card}]")
+            # a bare process, timed beside the holders' backups
+            split = asyncio.create_task(asyncio.to_thread(
+                process_start_split, device.type))
+
+            async with aiohttp.ClientSession() as http:
+                owner = Dashboard("owner", await http.ws_connect(url + "/ws"))
+                dashes = [owner] + [
+                    Dashboard(h.name, await http.ws_connect(u + "/ws"))
+                    for h, u in zip(holders, urls)]
+                # 2. the owner's standing request, then the holders'
+                # backups: each holder's request meets the owner's.  The
+                # backups start one match apart: the matchmaker holds a
+                # popped request out of its queue while it records a
+                # match, so two holders asking at once can meet each
+                # other instead of the owner
+                t0 = time.perf_counter()
+                await app.server.backup_storage_request(
+                    APP_HOLDERS * defaults.STORAGE_REQUEST_STEP,
+                    min_peers=k + m)
+                marks = []
+                for i, d in enumerate(dashes[1:]):
+                    marks.append(len(d.frames))
+                    await d.send("start_backup")
+                    t1 = time.perf_counter()
+                    while len(app.store.list_peers()) <= i:
+                        if time.perf_counter() - t1 > 60:
+                            raise AssertionError(
+                                f"{d.name}'s request met no grant of the "
+                                f"owner's in 60 s:\n{holders[i].tail()}")
+                        await asyncio.sleep(0.05)
+                await asyncio.gather(*(
+                    d.until(lambda ev: ev["kind"] == "backup_finished",
+                            "backup_finished", 120.0, start=mark)
+                    for d, mark in zip(dashes[1:], marks)))
+                peers = {bytes(p.pubkey).hex(): p.bytes_negotiated
+                         for p in app.store.list_peers()}
+                if len(peers) < k + m:
+                    raise AssertionError(f"the owner was matched with "
+                                         f"{len(peers)} holders: {peers}")
+                steps["holder backups"] = time.perf_counter() - t0
+                log(f"app: the holders' backups over their dashboards in "
+                    f"{steps['holder backups']:.1f} s; the owner "
+                    f"matched with {len(peers)} holders at "
+                    f"{sorted(set(peers.values()))} B; a bare process "
+                    f"beside them: {await split} [{card}]")
+
+                # 3. the owner's backup, audit and status over its own
+                # dashboard
+                t0 = time.perf_counter()
+                cfg0 = await owner.run("get_config", "config", 30.0)
+                cfg = await owner.run("config", "config", 30.0,
+                                      backup_path=str(src))
+                if cfg["payload"] != {"backup_path": str(src)}:
+                    raise AssertionError(f"config: {cfg0} then {cfg}")
+                done = await owner.run("start_backup", "backup_finished",
+                                       300.0)
+                steps["owner backup"] = time.perf_counter() - t0
+                root = bytes.fromhex(done["payload"]["snapshot"])
+                rows = app.store.all_placements()
+                shape, holders_of = {}, {}
+                for pid, peer, _size, idx, _sent in rows:
+                    shape.setdefault(bytes(pid), []).append(idx)
+                    holders_of.setdefault(bytes(pid), []).append(bytes(peer))
+                full = {p for p, ix in shape.items()
+                        if sorted(ix) == list(range(k + m))}
+                whole = {p for p, ix in shape.items() if ix == [-1]}
+                if not full or any(len(set(holders_of[p])) != k + m
+                                   for p in full):
+                    raise AssertionError(f"placements: {shape}")
+                stats = app.engine.last_pack_stats
+                placed = sum(r[2] for r in rows)
+                log(f"app: the owner's backup over its dashboard: "
+                    f"{stats.bytes_read / MiB:.1f} MiB in "
+                    f"{steps['owner backup']:.1f} s = "
+                    f"{stats.bytes_read / MiB / steps['owner backup']:.2f} MiB/s;"
+                    f" {len(shape)} packfiles: {len(full)} RS({k}, {m}) "
+                    f"stripes on six distinct holders, {len(whole)} whole, "
+                    f"{len(shape) - len(full) - len(whole)} partial (a stripe"
+                    f" that went out whole); {placed / MiB:.1f} MiB placed "
+                    f"on {len({r[1] for r in rows})} holders [{card}]")
+
+                t0 = time.perf_counter()
+                holding = {bytes(r[1]).hex() for r in rows}
+                mark = len(owner.frames)
+                await owner.send("start_audit")
+
+                def audited(ev):
+                    if ev["kind"] != "peers":
+                        return False
+                    health = {p["id"]: p["audit"]["health"]
+                              for p in ev["payload"]["peers"]}
+                    return all(health.get(h) == "pass" for h in holding)
+
+                audit = await owner.until(audited, "every holder audited "
+                                          "pass", 120.0, start=mark)
+                steps["owner audit"] = time.perf_counter() - t0
+                status = f"http://127.0.0.1:{app.status_port}"
+                async with http.get(status + "/healthz") as resp:
+                    health = await resp.json()
+                async with http.get(status + "/metrics") as resp:
+                    metrics_text = await resp.text()
+                dur = health["durability"]
+                if dur["status"] != "ok" or dur["stripes_degraded"] or \
+                        dur["stripes_lost"] or \
+                        dur["stripes_total"] < len(full):
+                    raise AssertionError(f"/healthz: {health}")
+                if "bkw_backup_runs_total" not in metrics_text:
+                    raise AssertionError("/metrics lacks the backup runs")
+                passes = {p["id"][:8]: p["audit"]["passes"]
+                          for p in audit["payload"]["peers"]
+                          if p["id"] in holding}
+                log(f"app: audit over the dashboard: {len(holding)} holders "
+                    f"of the owner's data pass ({passes} passes) in "
+                    f"{steps['owner audit']:.1f} s; /healthz status "
+                    f"{health['status']} (SLO {health['slo']}), durability "
+                    f"{dur}; /metrics "
+                    f"{len(metrics_text.splitlines())} lines [{card}]")
+                phrase = secret_to_phrase(app.keys.root_secret)
+                for d in dashes:
+                    if d.errors:
+                        raise AssertionError(f"{d.name}: {d.errors}")
+                await owner.close()
+
+                # the owner's machine is lost
+                t0 = time.perf_counter()
+                await ui.stop()
+                await app.stop()
+                owner_up = False
+                out["launches"] = read_counts(counters)
+                shutil.rmtree(tmp / "owner")
+                steps["owner stop"] = time.perf_counter() - t0
+                root_host, host_s = await asyncio.to_thread(host.result)
+                if root != root_host:
+                    raise AssertionError("the owner's root differs from the "
+                                         "host oracle's")
+                log(f"app: the owner stopped and its directories deleted; "
+                    f"root equal to DirPacker over CpuBackend with a fresh "
+                    f"index ({host_s:.1f} s in a worker process); the "
+                    f"owner's launches {out['launches']} [{card}]")
+
+                # 4. the recovery from the phrase, on fresh directories
+                t0 = time.perf_counter()
+                dest = tmp / "recovered"
+                rec = AppProcess("recovery", client_args(
+                    "recovery", addr=addr, restore_phrase=phrase,
+                    backup_path=dest), log_dir)
+                procs.append(rec)
+                rurl = (await asyncio.to_thread(start, rec, "dashboard at")) \
+                    .rsplit("at ", 1)[1].strip()
+                check_on_card(rec)
+                rdash = Dashboard("recovery",
+                                  await http.ws_connect(rurl + "/ws"))
+                dashes.append(rdash)
+                t1 = time.perf_counter()
+                await rdash.run("start_restore", "restore_finished", 300.0)
+                steps["restore"] = time.perf_counter() - t1
+                steps["recovery: start + restore"] = time.perf_counter() - t0
+                n = same_tree(dest, src)
+                log(f"app: recovery from the phrase: up in "
+                    f"{starts['recovery']:.1f} s, restore over its dashboard "
+                    f"{n / MiB:.1f} MiB byte-identical in "
+                    f"{steps['restore']:.1f} s = "
+                    f"{n / MiB / steps['restore']:.2f} MiB/s [{card}]")
+                for d in dashes:
+                    if d.errors:
+                        raise AssertionError(f"{d.name}: {d.errors}")
+                for d in dashes[1:]:
+                    await d.close()
+        finally:
+            if owner_up:
+                await ui.stop()
+                await app.stop()
+
+        # 5. SIGINT to every process, together
+        t0 = time.perf_counter()
+        exits = await asyncio.gather(*(asyncio.to_thread(p.interrupt)
+                                       for p in reversed(procs)))
+        steps["SIGINT to exit"] = time.perf_counter() - t0
+        log("app: every process exited after SIGINT: " + ", ".join(
+            f"{p.name} {s:.1f} s (rc {p.proc.returncode})"
+            for p, s in zip(reversed(procs), exits)) + f" [{card}]")
+
+    gc.collect()
+    # the heap of the phases before stays out of collections (PERF.md §6)
+    gc.freeze()
+    t_phase = time.perf_counter()
+    try:
+        asyncio.run(run())
+    except BaseException:
+        log(f"app: failed after {time.perf_counter() - t_phase:.1f} s, "
+            f"steps {steps}; the processes' last lines:\n" + "\n".join(
+                f"--- {p.name} (rc {p.proc.poll()})\n{p.tail(8)}"
+                for p in procs))
+        raise
+    finally:
+        gc.unfreeze()
+        for p in procs:
+            p.kill()
+        oracle_pool.shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = [p.name for p in procs if p.proc.poll() is None]
+    if left:
+        raise AssertionError(f"processes left behind: {left}")
+    wall = time.perf_counter() - t_phase
+    launches = out["launches"]
+    log(f"app: phase wall {wall:.1f} s ("
+        + ", ".join(f"{n} {s:.1f} s" for n, s in steps.items())
+        + "); process starts " + ", ".join(
+            f"{n} {s:.1f} s" for n, s in starts.items())
+        + f"; the owner's launches {launches} [{card}]")
+    for name in ("scan_candidates", "blake3_leaf", "dedup_probe",
+                 "gf_matmul"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} not launched by the "
+                                 "owner's ClientApp")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3678,13 +4284,13 @@ def main(argv=None) -> int:
     # and tiny files on the card, ~220 of one-row files)
     breakdown(torch, backend.manifest_many, corpus[:1],
               "1 one-row 96 MiB file", card)
-    multi_tiny = corpus[8:10] + corpus[308:318]
+    multi_tiny = corpus[8:9] + corpus[308:313]
     breakdown(torch, backend.manifest_many, multi_tiny,
-              "2 multi-row + 10 tiny files", card)
+              "1 multi-row + 5 tiny files", card)
     calls = dedup_index.insert_table.launches
     counts = breakdown(torch, lambda streams: backend.manifest_many_classified(
         streams, MeshDedupIndex(SetAuthority())), multi_tiny,
-        "2 multi-row + 10 tiny files, classified", card)
+        "1 multi-row + 5 tiny files, classified", card)
     calls = dedup_index.insert_table.launches - calls
     if counts is not None:
         log(f"K5 in the profiled classified call: {calls} insert calls, "
@@ -3765,6 +4371,16 @@ def main(argv=None) -> int:
         row["engine_launches"] = engine_launches[row["name"]]
     log(f"engine phase: {time.perf_counter() - t0:.1f} s")
     mark("engine phase")
+
+    # 8. the app phase: the system as users run it, its owner's launches
+    # counted from 0
+    t0 = time.perf_counter()
+    app_launches = phase_app(
+        torch, np.random.default_rng([args.seed, 7]), card, engine_counters)
+    for row in rows:
+        row["app_launches"] = app_launches[row["name"]]
+    log(f"app phase: {time.perf_counter() - t0:.1f} s")
+    mark("app phase")
     log(f"script total {time.perf_counter() - t_start:.1f} s [{card}]")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,10 +17,10 @@ the server of the other.
 The port's ``Engine(..., backend=None)`` would take the card
 (``select_backend()``), so a case that builds one gets :class:`CpuEngine`,
 which passes ``GpuBackend(device="cpu")``: the plain versions of the
-kernels and the tiered dedup front on the CPU.  ``ClientApp`` is not
-ported yet: a case that uses it gets the reference's ``ClientApp``
-re-created over the port's engine, store and network (:func:`app_over`),
-with the reference's messenger and SLO series, which the port lacks.
+kernels and the tiered dedup front on the CPU.  A case that uses
+``ClientApp`` gets the port's (``backuwup_tpu_torch/app.py``), whose
+engine takes the same backend when it is given none
+(:func:`cpu_select_backend`).
 
 On top of those, at tolerance 0 (:func:`test_engine_parity`): the port's
 ``Engine`` over ``GpuBackend(device="cpu")`` and the reference's over
@@ -29,12 +29,10 @@ holders and a server of either package, and give the same snapshot
 roots, store rows, pack statistics, GC report and restored bytes.
 """
 
-import ast
 import asyncio
 import hashlib
 import inspect
 import random
-import sys
 import time
 import types
 from dataclasses import asdict
@@ -46,8 +44,8 @@ import test_engine_send as ref_engine_send
 import test_erasure as ref_erasure
 import test_restore_swarm as ref_restore_swarm
 import test_transfer as ref_transfer
-from backuwup_tpu import app as ref_app
 from backuwup_tpu_torch import engine as port_engine
+from backuwup_tpu_torch.ops import backend as port_backend
 from backuwup_tpu_torch.ops.backend import GpuBackend
 from test_torch_net_server import (PORT, REF, cases, rebind, run_case,
                                    uses_any)
@@ -55,8 +53,7 @@ from test_torch_net_server import _isolate  # noqa: F401  (autouse)
 
 # modules of the reference that the port does not have yet: a case that
 # imports one takes the reference's
-NOT_YET = ("scenario", "analysis", "app", "ui", "sim", "obs.diagnose",
-           "obs.series", "obs.timeline")
+NOT_YET = ("scenario", "analysis", "sim")
 SERVER_SIDE = ("net.server", "net.serverstore", "net.matchmaking",
                "net.ring")
 
@@ -91,40 +88,13 @@ class CpuEngine(port_engine.Engine):
                          backend or GpuBackend(device="cpu"), *args, **kw)
 
 
-def app_over(pkg):
-    """``app.py`` of the reference with its imports resolved in ``pkg``
-    (but for the modules the port lacks: the messenger, the SLO series
-    and the diagnosis stay the reference's): its ``ClientApp`` then runs
-    ``pkg``'s engine, store and network.  The port's ``Engine`` takes
-    ``dedup_device`` where the reference's takes ``dedup_mesh``."""
-    if pkg == REF:
-        return ref_app
-    tree = ast.parse(inspect.getsource(ref_app))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.ImportFrom) and node.level == 1:
-            paths = [".".join(p for p in (node.module, a.name) if p)
-                     for a in node.names] + [node.module or ""]
-            src = REF if any(map(_not_yet, paths)) else pkg
-            node.module = ".".join(p for p in (src, node.module) if p)
-            node.level = 0
-        elif isinstance(node, ast.Call) and \
-                getattr(node.func, "id", None) == "Engine":
-            for kw in node.keywords:
-                if kw.arg == "dedup_mesh":
-                    kw.arg = "dedup_device"
-    mod = types.ModuleType(f"{pkg}_app_for_tests")
-    mod.__file__ = ref_app.__file__
-    exec(compile(tree, ref_app.__file__, "exec"), mod.__dict__)
-    return mod
-
-
-APPS = {}
-
-
-def _app(pkg):
-    if pkg not in APPS:
-        APPS[pkg] = app_over(pkg)
-    return APPS[pkg]
+def cpu_select_backend(prefer=None, params=None):
+    """The port's ``select_backend`` with the card's choice served by
+    ``GpuBackend(device="cpu")``: what an ``Engine`` that is given no
+    backend takes in a case of the port (``ClientApp`` builds it so)."""
+    if prefer in (None, "gpu"):
+        return GpuBackend(params, device="cpu")
+    return port_backend.select_backend(prefer, params)
 
 
 def _rebind_class(cls, ns):
@@ -177,8 +147,8 @@ def _finish(gen):
 def run_ref(module, ns, name, params, request):
     """:func:`run_case` with the fixtures of ``module`` re-created over
     ``ns`` (its autouse ones run first); a generator fixture's teardown
-    runs when the case ends.  A case of a pick whose engine is the port's
-    sees :func:`app_over` as ``backuwup_tpu.app``."""
+    runs when the case ends.  In a case of a pick whose engine is the
+    port's, an engine given no backend takes :func:`cpu_select_backend`."""
     fx = _module_fixtures(module, ns)
     cache = {}
 
@@ -196,10 +166,9 @@ def run_ref(module, ns, name, params, request):
             cache[arg] = v
         return cache[arg]
 
-    pkg = ns["__pick__"].engine_pkg
-    if pkg != REF and ref_app.__name__ in inspect.getsource(module):
-        request.getfixturevalue("monkeypatch").setitem(
-            sys.modules, ref_app.__name__, _app(pkg))
+    if ns["__pick__"].engine_pkg == PORT:
+        request.getfixturevalue("monkeypatch").setattr(
+            port_engine, "select_backend", cpu_select_backend)
     for arg, (_fn, autouse) in fx.items():
         if autouse:
             value(arg)
@@ -207,17 +176,19 @@ def run_ref(module, ns, name, params, request):
              {a: (lambda a=a: value(a)) for a in fx})
 
 
-def params_of(module, skip=(), only=None):
+def params_of(module, skip=(), only=None, served=tuple(PAIRS),
+              alone=("port", "ref")):
     """Each case of ``module`` (those named in ``only``, when given) in
-    the pairs that tell something apart: all four when it starts a
-    coordination server, else port and ref."""
+    the pairs that tell something apart: ``served`` (all four by
+    default) when it starts a coordination server, else ``alone`` (port
+    and ref)."""
     out = []
     for case in cases(module, skip=skip):
         name, params = case.values
         if only is not None and name not in only:
             continue
         mixed = uses_any(module, name, ("CoordinationServer",))
-        for p in PAIRS if mixed else ("port", "ref"):
+        for p in served if mixed else alone:
             out.append(pytest.param(name, params, p, id=f"{p}-{case.id}"))
     return out
 
@@ -311,10 +282,11 @@ def test_cases_were_found():
     assert ns["TransferScheduler"].__module__ == f"{PORT}.net.transfer"
     assert ns_for(ref_transfer, "ref")["Engine"].__module__ == \
         f"{REF}.engine"
-    app = _app(PORT)
+    from backuwup_tpu_torch import app
     assert app.Engine is port_engine.Engine
-    assert app.Messenger.__module__ == f"{REF}.ui.messenger"
+    assert app.Messenger.__module__ == f"{PORT}.ui.messenger"
     assert app.ServerClient.__module__ == f"{PORT}.net.client"
+    assert app.SeriesRecorder.__module__ == f"{PORT}.obs.series"
 
 
 # --- parity: one deployment, either package's engine, holders and server -----

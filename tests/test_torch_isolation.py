@@ -48,13 +48,14 @@ def test_no_jax_or_reference_imports_in_port_sources():
 
 
 @pytest.mark.parametrize("part", ["obs", "dedupstore", "snapshot", "utils",
-                                  "net", "crypto.py", "wire.py",
-                                  "wordlist.py", "engine.py"])
+                                  "net", "ui", "crypto.py", "wire.py",
+                                  "wordlist.py", "engine.py", "app.py",
+                                  "__main__.py"])
 def test_host_layer_copies_are_scanned_and_stand_alone(part):
     """The host layers the port copied from the reference (its own
-    ``obs``, ``dedupstore``, ``snapshot``, ``utils`` and ``net`` packages
-    and the top-level ``crypto``, ``wire``, ``wordlist`` and ``engine``
-    modules) are in the
+    ``obs``, ``dedupstore``, ``snapshot``, ``utils``, ``net`` and ``ui``
+    packages and the top-level ``crypto``, ``wire``, ``wordlist``,
+    ``engine``, ``app`` and ``__main__`` modules) are in the
     scanned set and import nothing of the JAX package or of JAX."""
     path = PORT / part
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]

@@ -17,6 +17,7 @@ The helpers here (:func:`rebind`, :func:`cases`, :func:`run_case`,
 
 import ast
 import asyncio
+import contextlib
 import importlib
 import inspect
 import sqlite3
@@ -86,6 +87,14 @@ def _resolve(pkg: str, module_path: str, attr: str):
         return importlib.import_module(f"{mod.__name__}.{attr}")
 
 
+def _over(fn, ns):
+    """``fn`` re-created with ``ns`` as its globals."""
+    new = types.FunctionType(fn.__code__, ns, fn.__name__, fn.__defaults__,
+                             fn.__closure__)
+    new.__kwdefaults__ = fn.__kwdefaults__
+    return new
+
+
 def rebind(module, pick):
     """A namespace in which ``module``'s functions run against the
     packages ``pick`` chooses.
@@ -104,10 +113,16 @@ def rebind(module, pick):
     for name, obj in vars(module).items():
         if isinstance(obj, types.FunctionType) and \
                 obj.__module__ == module.__name__:
-            fn = types.FunctionType(obj.__code__, ns, name, obj.__defaults__,
-                                    obj.__closure__)
-            fn.__kwdefaults__ = obj.__kwdefaults__
-            ns[name] = fn
+            wrapped = getattr(obj, "__wrapped__", None)
+            if obj.__code__.co_filename == contextlib.__file__ and \
+                    wrapped is not None:
+                # a (async) context manager: its generator over ``ns``
+                inner = _over(wrapped, ns)
+                ns[name] = (contextlib.asynccontextmanager
+                            if inspect.isasyncgenfunction(inner)
+                            else contextlib.contextmanager)(inner)
+            else:
+                ns[name] = _over(obj, ns)
     ns["__pick__"] = pick
     return ns
 
